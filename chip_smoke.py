@@ -1,30 +1,46 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-Drives the port's slice-1 path at the bench scale (N = 3,072,000 × d = 300,
-bench.py's data size and BUILD settings) through the entry points a user
-calls, and holds the hand-written kernels to their plain versions:
+Drives the port's two ported paths at the bench scale (N = 3,072,000 ×
+d = 300, bench.py's data size and BUILD settings) through the entry points
+a user calls, and holds every hand-written kernel to its plain version:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
 2. build: the kernels of ``postgres_word2vec_tpu_torch/csrc`` from source;
 3. each kernel against its plain PyTorch version on the card, at
-   boundary shapes and at the main path's shapes;
-4. the slice: ``Freddy.build`` on generated word-like data, then exact,
-   PQ and PQ + post-verify kNN and the fused bf16 exact scan, with recall
-   against the float32 exact scan and each kernel's launch count;
+   boundary shapes and at the main paths' shapes;
+4. the paths, each with the launch counts set to 0 just before it and
+   read just after: ``Freddy.build`` (PQ 12×256 with OPQ, IVFADC 12×256
+   over 1000 cells, IVPQ 30×32 over a flat 1024-cell quantizer) on
+   generated word-like data, then
+   - slice 1: exact, PQ and PQ + post-verify kNN and the fused bf16 exact
+     scan;
+   - slice 2: IVFADC ``knn_batch`` and IVFADC + post-verify, the IVPQ
+     kNN-join at 100,000 prepared targets with statistics (alpha 200,
+     methods 0, 2 and 1) and over the whole store (alpha 600, method 2),
+     and single-query ``knn_in_ivpq`` (methods 0 and 1);
+   with recall against the float32 exact scan over the same targets;
 5. times: p50 per query from CUDA events, kernel and plain version side
-   by side, and each kernel alone against its plain version.
+   by side, and each kernel alone against its plain version;
+6. only with ``--profile OUT.json``: a ``torch.profiler`` window of 3
+   calls per path, written to OUT.json — host wall and device time per
+   call, the device's busy share, the top device kernels, and each
+   hand-written kernel's device time per launch without its torch glue.
 
-Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
-with one CUDA GPU. It fails (non-zero exit, no result line) without CUDA,
-without the package beside it, or when any check fails. The line before
+Usage: ``python3 chip_smoke.py [--profile OUT.json]`` from the repository
+root, on a machine with one CUDA GPU. It fails (non-zero exit, no result
+line) without CUDA, without the package beside it, or when any check
+fails. The line before
 the last is a JSON object of per-kernel numbers; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -34,11 +50,23 @@ K = 10
 EVAL_Q = 256
 FUSED_B = 1024
 BUILD = dict(train_size=100_000, iters=25, init="kmeans++")
+# bench.py:378 (IVFADC) and bench.py:498-499 (IVPQ, flat 1024 cells).
+PROBE_BUILD = dict(k_coarse=1000, ivpq_k_coarse=1024,
+                   ivpq_coarse_positions=1)
+JOIN_T, JOIN_Q, JOIN_K = 100_000, 5000, 5     # bench.py:497-503
 SEED = 0
 # Sanity floors, well below the JAX package's r05 columns on its own data
-# (OPQ@5 0.574, PQ+PV20@5 0.916, fused exact ~0.99).
-FLOORS = {"pq@5": 0.45, "pq_pv@5": 0.85, "fused@10": 0.95}
-TOL = {"adc_scan": 1e-4, "adc_scan_binned": 1e-5, "fused_exact_scan": 1e-3}
+# (OPQ@5 0.574, PQ+PV20@5 0.916, fused exact ~0.99, IVFADC@5 0.538,
+# IVFADC+PV20@5 0.936, join a200@5 0.878, join a600 over 3M @5 0.823).
+FLOORS = {"pq@5": 0.45, "pq_pv@5": 0.85, "fused@10": 0.95,
+          "ivfadc@5": 0.40, "ivfadc_pv20@5": 0.80, "join_m2_a200@5": 0.75,
+          "join_m1_a200@5": 0.75, "join_3M_m2_a600@5": 0.70}
+# K6/K7 sum subspaces in the plain version's order (bit-equal in
+# practice); K9/K10 sum 304 float32 products in another order.
+TOL = {"adc_scan": 1e-4, "adc_scan_binned": 1e-5, "fused_exact_scan": 1e-3,
+       "budget_adc": 1e-5, "budget_adc_grouped": 1e-5, "budget_exact": 1e-4,
+       "budget_exact_grouped": 1e-4}
+BUDGET_BOOKS = ((12, 256, "uint8"), (30, 32, "uint8"), (15, 1024, "int16"))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -86,8 +114,43 @@ def p50(xs):
                                                     + s[len(s) // 2])
 
 
+def budget_err(torch, got, want, name: str, what: str) -> float:
+    """A budget kernel's output against its plain version: the same +inf
+    entries, no NaN, finite entries within the kernel's tolerance."""
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    check(torch.equal(torch.isfinite(got), fin) and not torch.isnan(got).any(),
+          f"{name} {what}: +inf entries differ from the plain version")
+    err = float((got - want)[fin].abs().max()) if fin.any() else 0.0
+    check(err <= TOL[name], f"{name} {what}: err {err} > {TOL[name]}")
+    return err
+
+
+@contextlib.contextmanager
+def plain_kernels(kernels):
+    """Run the kernels' plain versions on the card inside the block (for
+    the plain side of the path times; nothing here counts a launch). The
+    grouped kernels' plain versions are the per-query ones."""
+    def ungrouped(plain):
+        return lambda *args, rows=None, **kw: plain(*args, **kw)
+
+    swap = {"adc_scan": kernels.adc_scan_plain,
+            "budget_adc": kernels.budget_adc_plain,
+            "budget_adc_grouped": ungrouped(kernels.budget_adc_plain),
+            "budget_exact": kernels.budget_exact_plain,
+            "budget_exact_grouped": ungrouped(kernels.budget_exact_plain)}
+    saved = {name: getattr(kernels, name) for name in swap}
+    for name, fn in swap.items():
+        setattr(kernels, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(kernels, name, fn)
+
+
 def boundary_checks(torch, kernels) -> None:
-    """Phase 3a: every kernel against its plain version at the block
+    """Phase 3a: K1/K2/K4 against their plain versions at the block
     boundaries N ∈ {2047, 2048, 2049, 8191, 8193}, B ∈ {1, 257}, and the
     three codebook shapes (12×256 uint8, 60×16 uint8, 12×1024 int16)."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -124,10 +187,129 @@ def boundary_checks(torch, kernels) -> None:
                                   atol=TOL["fused_exact_scan"])
             n_cases += 1
     torch.cuda.synchronize()
-    log(f"[3] boundary shapes: {n_cases} kernel-vs-plain cases agree")
+    log(f"[3] boundary shapes: {n_cases} K1/K2/K4 kernel-vs-plain cases "
+        f"agree")
+
+
+def budget_boundary_checks(torch, kernels) -> None:
+    """Phase 3a: K6/K7/K9/K10 against their plain versions at block_t ∈
+    {128, 256, 1024}, B ∈ {1, 257}, five slots per query whose last one is
+    the inf tile, pad rows inside a tile, and the three budget codebooks
+    (12×256 uint8, 30×32 uint8, fused-pair 15×1024 int16)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    nt, P, n_cases = 6, 5, 0
+    for block_t in (128, 256, 1024):
+        na = (nt + 1) * block_t
+        pad = slice(block_t + block_t // 2, 2 * block_t)
+        rowterm = torch.randn(na, generator=g, device="cuda")
+        rowterm[pad] = float("inf")
+        rowterm[nt * block_t:] = float("inf")
+        v = torch.nn.functional.normalize(
+            torch.randn(na, D, generator=g, device="cuda"), dim=1)
+        v[pad] = 0.0
+        v[nt * block_t:] = 0.0
+        vecs = torch.zeros(na, 304, dtype=torch.bfloat16, device="cuda")
+        vecs[:, :D] = v.to(torch.bfloat16)
+        rownorm = torch.sum(v * v, dim=1)
+        rownorm[pad] = float("inf")
+        rownorm[nt * block_t:] = float("inf")
+        for B in (1, 257):
+            tiles = torch.randint(0, nt + 1, (B, P), generator=g,
+                                  device="cuda", dtype=torch.int32)
+            tiles[:, -1] = nt
+            what = f"block_t={block_t} B={B}"
+            for m, k, dt in BUDGET_BOOKS:
+                luts = torch.rand(B, m, k, generator=g, device="cuda") * 4
+                codes_t = torch.randint(0, k, (m, na), generator=g,
+                                        device="cuda").to(getattr(torch, dt))
+                ref = kernels.budget_adc_plain(luts, codes_t, rowterm, tiles,
+                                               block_t=block_t)
+                budget_err(torch, kernels.budget_adc(
+                    luts, codes_t, rowterm, tiles, block_t=block_t), ref,
+                    "budget_adc", f"{what} {m}x{k}")
+                budget_err(torch, kernels.budget_adc_grouped(
+                    luts, codes_t, rowterm, tiles, block_t=block_t, rows=32),
+                    ref, "budget_adc_grouped", f"{what} {m}x{k}")
+                n_cases += 2
+            q = v[torch.randint(0, nt * block_t, (B,), generator=g,
+                                device="cuda")]
+            ref = kernels.budget_exact_plain(q, vecs, rownorm, tiles,
+                                             block_t=block_t)
+            budget_err(torch, kernels.budget_exact(
+                q, vecs, rownorm, tiles, block_t=block_t), ref,
+                "budget_exact", what)
+            budget_err(torch, kernels.budget_exact_grouped(
+                q, vecs, rownorm, tiles, block_t=block_t, rows=32), ref,
+                "budget_exact_grouped", what)
+            n_cases += 2
+    log(f"[3] boundary shapes: {n_cases} K6/K7/K9/K10 kernel-vs-plain "
+        f"cases agree")
+
+
+def profile_paths(torch, kernels, paths: dict, card: str, out: str,
+                  calls: int = 3) -> None:
+    """Phase 6: each path once to warm up, then ``calls`` calls under
+    ``torch.profiler``. Device time is the sum of the CUDA kernels' self
+    time; the busy share is device time over the host wall of the
+    profiled calls (the profiler inflates host time, so the share is a
+    lower bound)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    report = {"gpu": card, "calls": calls}
+    for name, fn in paths.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+        gpu = [e for e in prof.key_averages() if e.device_type == cuda
+               and e.self_device_time_total > 0]
+        check(gpu, f"profile {name}: no device time was recorded")
+        device_ms = sum(e.self_device_time_total for e in gpu) / 1e3 / calls
+        top = sorted(gpu, key=lambda e: -e.self_device_time_total)[:8]
+        ours = {}
+        for k in kernels.KERNELS:
+            pat = re.compile(rf"(?<![\w]){k}_kernel(?![\w])")
+            hits = [e for e in gpu if pat.search(e.key)]
+            if hits:
+                n = sum(e.count for e in hits)
+                ours[k] = {"launches_per_call": n / calls,
+                           "ms_per_launch": sum(e.self_device_time_total
+                                                for e in hits) / 1e3 / n}
+        report[name] = {
+            "wall_ms": wall_ms, "device_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "top": [[e.key[:60], e.self_device_time_total / 1e3 / calls,
+                     e.count // calls] for e in top],
+            "kernels": ours}
+        log(f"[6] profile {name}: wall {wall_ms:.3f} ms, device "
+            f"{device_ms:.3f} ms per call, busy "
+            f"{device_ms / wall_ms:.3f}, kernels {ours} on {card}")
+    with open(out, "w") as f:
+        json.dump(report, f, indent=1)
+    log(f"[6] profile written to {out}")
+
+
+def rows_to_ids(torch, store, rows, names, k: int):
+    """The ``(query, word, sim)`` rows of the queries ``names`` → a
+    (len(names), k) id matrix, −1 where a query has fewer than k rows."""
+    per = {n: [] for n in names}
+    for q, w, _ in rows:
+        if q in per:
+            per[q].append(store.get_id(w))
+    return torch.tensor([(per[n] + [-1] * k)[:k] for n in names])
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile", metavar="OUT.json",
+                    help="also profile each path and write the report here")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -136,6 +318,8 @@ def main() -> int:
         return 1
     from postgres_word2vec_tpu_torch import ExactIndex, Freddy, VectorStore
     from postgres_word2vec_tpu_torch.evaluation import synth
+    from postgres_word2vec_tpu_torch.models import ivfadc as ivfadc_mod
+    from postgres_word2vec_tpu_torch.models import ivpq as ivpq_mod
     from postgres_word2vec_tpu_torch.models.exact import exact_top_k_precast
     from postgres_word2vec_tpu_torch.ops import _build, kernels, lut
 
@@ -157,6 +341,7 @@ def main() -> int:
 
     # ---------------------------------------------------------- 3a: edges
     boundary_checks(torch, kernels)
+    budget_boundary_checks(torch, kernels)
 
     # ------------------------------------------------- 4 (set-up): data
     dev = torch.device("cuda")
@@ -168,15 +353,27 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[4] data {N}x{D} generated in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    eng = Freddy.build(store, seed=SEED, with_ivfadc=False, with_ivpq=False,
-                       **BUILD)
+    eng = Freddy.build(store, seed=SEED, with_ivfadc=True, with_ivpq=True,
+                       **PROBE_BUILD, **BUILD)
     torch.cuda.synchronize()
-    log(f"[4] Freddy.build (OPQ, 12x256) in {time.perf_counter() - t0:.1f} s")
+    log(f"[4] Freddy.build (OPQ 12x256, IVFADC 12x256 / 1000 cells, IVPQ "
+        f"30x32 / 1024 flat cells) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tiled = eng.ivfadc.tiled()
+    ph100k = eng.prepare_targets(torch.arange(JOIN_T, device=dev),
+                                 name="t100k")
+    torch.cuda.synchronize()
+    log(f"[4] IVFADC tiles (block_t {tiled.block_t}, avg "
+        f"{tiled.avg_tile_cnt:.2f} max {tiled.max_tile_cnt} per cell) and "
+        f"prepare_targets({JOIN_T}) in {time.perf_counter() - t0:.1f} s")
     fused = ExactIndex(store.vectors_norm, "bfloat16", approx=True,
                        fused=True)
     q256 = store.vectors_norm[:EVAL_Q]
     q1024 = store.vectors_norm[:FUSED_B]
     qwords = words[:EVAL_Q]
+    jwords = words[N - JOIN_Q:]
+    qjoin = store.vectors_norm[N - JOIN_Q:]
+    stats_all = None                        # whole store: uniform statistics
 
     # -------------------------------------------- 3b: main-path shapes
     pq = eng.pq
@@ -213,37 +410,128 @@ def main() -> int:
         mins, ids, ref, fused_score_at, block_n=8192, bins=128, valid_n=N,
         atol=TOL["fused_exact_scan"])
     del mins, ids, ref
+
+    # the budget kernels at the shapes their paths give them
+    ivf = eng.ivfadc
+    p_ivf = ivf._auto_budget(3, None, full=True)
+    _, _, tiles_ivf, _ = ivfadc_mod.probe_plan(
+        q256, ivf.coarse.centroids, tiled, 0, 3, p_ivf)
+    luts_ivf = lut.build_luts(q256, ivf.codebook.centroids)
+    ivpq = eng.ivpq
+    stats100k = None
+
+    def join_plan(jt, qs, alpha, stats):
+        p = ivpq._budget_for(jt, JOIN_K, alpha, None)
+        st = ivpq_mod.uniform_statistics(ivpq.coarse.cell_counts) \
+            if stats is None else stats
+        tiles, *_ = ivpq_mod.probe_tiles(qs, ivpq.coarse.centroids, st, jt,
+                                         JOIN_K, alpha, 0.8, p)
+        return tiles
+
+    eng.create_statistics("t100k", words[:JOIN_T])
+    stats100k = eng.statistics["t100k"]
+    jt100 = ph100k.tiles(with_vecs=False)
+    jt100v = ph100k.tiles(with_vecs=True)
+    qj = qjoin[:512]
+    luts_join = lut.build_luts(qj, ivpq.codebook.centroids)
+    tiles_j = join_plan(jt100, qj, 200, stats100k)
+    tiles_jv = join_plan(jt100v, qj, 200, stats100k)
+    tiles_1 = join_plan(jt100v, q256[7:8], 200, stats100k)
+    shapes = {
+        "budget_adc": (
+            lambda: kernels.budget_adc(luts_ivf, tiled.codes_t,
+                                       tiled.rowterm, tiles_ivf,
+                                       block_t=tiled.block_t),
+            lambda: kernels.budget_adc_plain(luts_ivf, tiled.codes_t,
+                                             tiled.rowterm, tiles_ivf,
+                                             block_t=tiled.block_t),
+            f"IVFADC B={EVAL_Q} P={p_ivf} block_t={tiled.block_t} 12x256"),
+        "budget_adc_grouped": (
+            lambda: kernels.budget_adc_grouped(
+                luts_join, jt100.codes_t, jt100.rowterm, tiles_j,
+                block_t=jt100.block_t, rows=32),
+            lambda: kernels.budget_adc_plain(
+                luts_join, jt100.codes_t, jt100.rowterm, tiles_j,
+                block_t=jt100.block_t),
+            f"join 100k B=512 P={tiles_j.shape[1]} block_t=256 30x32"),
+        "budget_exact": (
+            lambda: kernels.budget_exact(q256[7:8], jt100v.vecs,
+                                         jt100v.rownorm, tiles_1,
+                                         block_t=jt100v.block_t),
+            lambda: kernels.budget_exact_plain(q256[7:8], jt100v.vecs,
+                                               jt100v.rownorm, tiles_1,
+                                               block_t=jt100v.block_t),
+            f"single query B=1 P={tiles_1.shape[1]} block_t=256 d=300"),
+        "budget_exact_grouped": (
+            lambda: kernels.budget_exact_grouped(
+                qj, jt100v.vecs, jt100v.rownorm, tiles_jv,
+                block_t=jt100v.block_t, rows=32),
+            lambda: kernels.budget_exact_plain(
+                qj, jt100v.vecs, jt100v.rownorm, tiles_jv,
+                block_t=jt100v.block_t),
+            f"join 100k method 1 B=512 P={tiles_jv.shape[1]} d=300"),
+    }
+    for name, (kfn, pfn, what) in shapes.items():
+        errs[name] = budget_err(torch, kfn(), pfn(), name, what)
+    # and K6 at the 3M join's shape, K9 at a batch
+    ph_all = eng.prepare_targets(torch.arange(N, device=dev), name="all")
+    jt_all = ph_all.tiles(with_vecs=False)
+    tiles_3m = join_plan(jt_all, qj, 600, stats_all)
+    errs["budget_adc"] = max(errs["budget_adc"], budget_err(
+        torch, kernels.budget_adc(luts_join, jt_all.codes_t, jt_all.rowterm,
+                                  tiles_3m, block_t=jt_all.block_t),
+        kernels.budget_adc_plain(luts_join, jt_all.codes_t, jt_all.rowterm,
+                                 tiles_3m, block_t=jt_all.block_t),
+        "budget_adc", "join 3M B=512"))
+    errs["budget_exact"] = max(errs["budget_exact"], budget_err(
+        torch, kernels.budget_exact(qj, jt100v.vecs, jt100v.rownorm,
+                                    tiles_jv, block_t=jt100v.block_t),
+        kernels.budget_exact_plain(qj, jt100v.vecs, jt100v.rownorm, tiles_jv,
+                                   block_t=jt100v.block_t),
+        "budget_exact", "join 100k B=512"))
     torch.cuda.synchronize()
     log("[3] main-path shapes agree: " + ", ".join(
         f"{k} max_abs_err {v:.3g} (tol {TOL[k]})" for k, v in errs.items()))
 
-    # ------------------------------------------------------ 4: the slice
+    # ------------------------------------------------------ 4: the paths
     _, gt = eng.exact.search(q1024, K)        # float32 exact ground truth
     gt256 = gt[:EVAL_Q]
-    kernels.reset_launch_counts()
-    res = eng.knn(qwords[0], K)
-    check(len(res) == K and res[0][0] == qwords[0]
-          and abs(res[0][1] - 1.0) < 1e-4,
-          f"exact knn of {qwords[0]} does not return itself first: {res[:2]}")
-    rows = eng.knn_batch_exact(qwords, K)
-    check(len(rows) == EVAL_Q * K, "knn_batch_exact row count")
-    eng.set_knn_function("k_nearest_neighbour_pq")
-    res = eng.knn(qwords[0], K)
-    check(len(res) == K, "pq knn result length")
-    _, ids_pq = eng.knn_matrix(q256, K)
-    check(kernels.KERNELS["adc_scan"].launches > 0,
-          "PQ knn did not launch adc_scan")
-    eng.set_knn_function("k_nearest_neighbour_pq_pv")
-    d_pv, ids_pv = eng.knn_matrix(q256, K)
-    check(kernels.KERNELS["adc_scan_binned"].launches > 0,
-          "PQ-PV knn did not launch adc_scan_binned")
-    d_fx, ids_fx = fused.search(q1024, K)
-    check(kernels.KERNELS["fused_exact_scan"].launches > 0,
-          "fused exact search did not launch fused_exact_scan")
-    torch.cuda.synchronize()
-    launches = kernels.launch_counts()
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel of the path was not launched: {launches}")
+    gt_join = eng.exact.search_in(qjoin[:EVAL_Q], K, ph100k.target_ids)[1]
+    gt_3m = eng.exact.search(qjoin[:EVAL_Q], K)[1]
+    path_launches: dict[str, dict[str, int]] = {}
+
+    def run_path(name, fn):
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        path_launches[name] = {k: v for k, v in
+                               kernels.launch_counts().items() if v}
+        return out
+
+    def slice1():
+        res = eng.knn(qwords[0], K)
+        check(len(res) == K and res[0][0] == qwords[0]
+              and abs(res[0][1] - 1.0) < 1e-4,
+              f"exact knn of {qwords[0]} does not return itself first: "
+              f"{res[:2]}")
+        rows = eng.knn_batch_exact(qwords, K)
+        check(len(rows) == EVAL_Q * K, "knn_batch_exact row count")
+        eng.set_knn_function("k_nearest_neighbour_pq")
+        res = eng.knn(qwords[0], K)
+        check(len(res) == K, "pq knn result length")
+        _, ids_pq = eng.knn_matrix(q256, K)
+        check(kernels.KERNELS["adc_scan"].launches > 0,
+              "PQ knn did not launch adc_scan")
+        eng.set_knn_function("k_nearest_neighbour_pq_pv")
+        d_pv, ids_pv = eng.knn_matrix(q256, K)
+        check(kernels.KERNELS["adc_scan_binned"].launches > 0,
+              "PQ-PV knn did not launch adc_scan_binned")
+        d_fx, ids_fx = fused.search(q1024, K)
+        check(kernels.KERNELS["fused_exact_scan"].launches > 0,
+              "fused exact search did not launch fused_exact_scan")
+        return ids_pq, d_pv, ids_pv, d_fx, ids_fx
+
+    ids_pq, d_pv, ids_pv, d_fx, ids_fx = run_path("knn_slice1", slice1)
     for t in (d_pv, d_fx):
         check(bool(torch.isfinite(t).all()), "non-finite distances")
     rec = {"pq@5": recall_at(ids_pq, gt256, 5),
@@ -252,7 +540,69 @@ def main() -> int:
            "pq_pv@10": recall_at(ids_pv, gt256, 10),
            "fused@5": recall_at(ids_fx, gt, 5),
            "fused@10": recall_at(ids_fx, gt, 10)}
-    log(f"[4] launches {launches}")
+
+    # slice 2: IVFADC
+    eng.set_w(3)
+    eng.set_pvf(20)
+    rows = run_path("ivfadc_knn_batch", lambda: eng.knn_batch(qwords, K))
+    check(len(rows) >= EVAL_Q * K // 2 and all(
+        -1.0 <= s <= 1.0 + 1e-4 for _, _, s in rows), "IVFADC batch rows")
+    ids_ivf = rows_to_ids(torch, store, rows, qwords, K)
+    eng.set_knn_function("k_nearest_neighbour_ivfadc_pv")
+    d_ivpv, ids_ivpv = run_path("ivfadc_pv20_knn_matrix",
+                                lambda: eng.knn_matrix(q256, K))
+    check(bool(torch.isfinite(d_ivpv).all()), "IVFADC-PV distances")
+    rec.update({"ivfadc@5": recall_at(ids_ivf, gt256, 5),
+                "ivfadc@10": recall_at(ids_ivf, gt256, 10),
+                "ivfadc_pv20@5": recall_at(ids_ivpv, gt256, 5),
+                "ivfadc_pv20@10": recall_at(ids_ivpv, gt256, 10)})
+
+    # slice 2: the kNN-join at 100k prepared targets, statistics active
+    eng.set_statistics_table("t100k")
+    eng.set_alpha(200)
+    eng.set_confidence_value(0.8)
+
+    def join(name, method, targets, k=JOIN_K, qw=jwords):
+        eng.set_method_flag(method)
+        rows = eng.knn_in_ivpq_batch(qw, k, targets)
+        check(len(rows) >= len(qw) * k * 9 // 10 and all(
+            -1.0 - 1e-3 <= s <= 1.0 + 1e-3 for _, _, s in rows),
+            f"{name}: join rows")
+        return rows_to_ids(torch, store, rows, qw[:EVAL_Q], k)
+
+    for method in (0, 2, 1):
+        name = f"join_m{method}_a200"
+        ids5 = run_path(name, lambda m=method: join(name, m, "t100k"))
+        ids10 = join(name, method, "t100k", k=K, qw=jwords[:EVAL_Q])
+        rec[f"{name}@5"] = recall_at(ids5, gt_join, 5)
+        rec[f"{name}@10"] = recall_at(ids10, gt_join, 10)
+    eng.set_method_flag(0)
+    res0 = run_path("knn_in_ivpq_single_m0",
+                    lambda: eng.knn_in_ivpq("w7", JOIN_K, "t100k"))
+    check(len(res0) == JOIN_K and "w7" in [w for w, _ in res0],
+          f"knn_in_ivpq method 0 misses its own word: {res0}")
+    eng.set_method_flag(1)
+    res1 = run_path("knn_in_ivpq_single_m1",
+                    lambda: eng.knn_in_ivpq("w7", JOIN_K, "t100k"))
+    check(res1[0][0] == "w7" and abs(res1[0][1] - 1.0) < 1e-2,
+          f"knn_in_ivpq method 1 does not return its word first: {res1}")
+
+    # slice 2: the join over the whole store
+    eng.set_statistics_table(None)
+    eng.set_alpha(600)
+    ids5 = run_path("join_3M_m2_a600", lambda: join("join_3M", 2, "all"))
+    ids10 = join("join_3M", 2, "all", k=K, qw=jwords[:EVAL_Q])
+    rec["join_3M_m2_a600@5"] = recall_at(ids5, gt_3m, 5)
+    rec["join_3M_m2_a600@10"] = recall_at(ids10, gt_3m, 10)
+
+    launches = {name: 0 for name in kernels.KERNELS}
+    for counts in path_launches.values():
+        for name, v in counts.items():
+            launches[name] += v
+    for name, counts in path_launches.items():
+        log(f"[4] path {name} launched {counts}")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of the paths was not launched: {launches}")
     log("[4] recall vs float32 exact: " + ", ".join(
         f"{k} {v:.4f}" for k, v in rec.items()))
     for name, floor in FLOORS.items():
@@ -271,6 +621,7 @@ def main() -> int:
                                              fused._tiled_norms),
             lambda: kernels.fused_exact_scan_plain(qb, fused._tiled,
                                                    fused._tiled_norms)),
+        **{name: (kfn, pfn) for name, (kfn, pfn, _) in shapes.items()},
     }
     for name, (kfn, pfn) in pairs.items():
         pl1, kt, kt2, pl2 = (cuda_ms(torch, pfn, reps=3),
@@ -283,29 +634,84 @@ def main() -> int:
             f"kernel-plain) on {card}")
     del luts
 
+    def joined(method, targets, alpha, stats):
+        def go():
+            eng.set_method_flag(method)
+            eng.set_alpha(alpha)
+            eng.set_statistics_table(stats)
+            return eng.knn_in_ivpq_batch(jwords, JOIN_K, targets)
+        return go
+
+    def ivfadc_pv():
+        eng.set_knn_function("k_nearest_neighbour_ivfadc_pv")
+        return eng.knn_matrix(q256, K)
+
     paths = {
-        "exact_f32_b256": (lambda: eng.exact.search(q256, K), None, EVAL_Q),
-        "pq_b256": (lambda: pq.search(q256, K),
-                    lambda: pq.search(q256, K, impl="plain"), EVAL_Q),
+        "exact_f32_b256": (lambda: eng.exact.search(q256, K), False, EVAL_Q),
+        "pq_b256": (lambda: pq.search(q256, K), True, EVAL_Q),
         "pq_pv20_b256": (
-            lambda: pq.search_pv(q256, K, 20, store.vectors_norm),
-            lambda: pq.search_pv(q256, K, 20, store.vectors_norm,
-                                 impl="plain"), EVAL_Q),
-        "exact_bf16_fused_b1024": (
-            lambda: fused.search(q1024, K),
-            lambda: exact_top_k_precast(q1024, fused._table, fused._norms,
-                                        K), FUSED_B),
+            lambda: pq.search_pv(q256, K, 20, store.vectors_norm), True,
+            EVAL_Q),
+        "exact_bf16_fused_b1024": (lambda: fused.search(q1024, K), False,
+                                   FUSED_B),
+        "ivfadc_batch_w3_b256": (lambda: eng.knn_batch(qwords, K), True,
+                                 EVAL_Q),
+        "ivfadc_pv20_b256": (ivfadc_pv, True, EVAL_Q),
+        "join_m0_a200_100k": (joined(0, "t100k", 200, "t100k"), True,
+                              JOIN_Q),
+        "join_m2_a200_100k": (joined(2, "t100k", 200, "t100k"), True,
+                              JOIN_Q),
+        "join_m1_a200_100k": (joined(1, "t100k", 200, "t100k"), True,
+                              JOIN_Q),
+        "join_m2_a600_3M": (joined(2, "all", 600, None), True, JOIN_Q),
     }
+    plain_alt = {"exact_bf16_fused_b1024": lambda: exact_top_k_precast(
+        q1024, fused._table, fused._norms, K)}
     times = {}
-    for name, (kfn, pfn, b) in paths.items():
+    for name, (kfn, has_plain, b) in paths.items():
         kt = cuda_ms(torch, kfn, reps=5)
         row = {"ms_per_query": p50(kt) / b}
-        if pfn is not None:
-            pt = cuda_ms(torch, pfn, reps=5)
-            row["plain_ms_per_query"] = p50(pt) / b
+        if has_plain:
+            with plain_kernels(kernels):
+                if name.startswith("pq"):
+                    pfn = {"pq_b256": lambda: pq.search(q256, K,
+                                                        impl="plain"),
+                           "pq_pv20_b256": lambda: pq.search_pv(
+                               q256, K, 20, store.vectors_norm,
+                               impl="plain")}[name]
+                else:
+                    pfn = kfn
+                row["plain_ms_per_query"] = p50(cuda_ms(torch, pfn,
+                                                        reps=5)) / b
+        elif name in plain_alt:
+            row["plain_ms_per_query"] = p50(cuda_ms(torch, plain_alt[name],
+                                                    reps=5)) / b
         times[name] = row
         log(f"[5] path {name} B={b}: " + ", ".join(
             f"{k} {v:.5f}" for k, v in row.items()) + f" on {card}")
+    def single(method):
+        def go():
+            eng.set_statistics_table("t100k")
+            eng.set_alpha(200)
+            eng.set_method_flag(method)
+            return eng.knn_in_ivpq("w7", JOIN_K, "t100k")
+        return go
+
+    singles = {"knn_in_ivpq_single_m0": single(0),
+               "knn_in_ivpq_single_m1": single(1)}
+    for name, fn in singles.items():
+        kt = cuda_ms(torch, fn, reps=9)
+        with plain_kernels(kernels):
+            pt = cuda_ms(torch, fn, reps=9)
+        times[name] = {"ms_per_query": p50(kt), "plain_ms_per_query": p50(pt)}
+        log(f"[5] path {name} B=1: ms_per_query {p50(kt):.5f}, "
+            f"plain_ms_per_query {p50(pt):.5f} on {card}")
+
+    # ------------------------------------------------- 6: opt-in profile
+    if args.profile:
+        profile_paths(torch, kernels, {
+            **{name: fn for name, (fn, _, _) in paths.items()}, **singles},
+            card, args.profile)
 
     summary = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
@@ -314,7 +720,7 @@ def main() -> int:
          "plain_ms": plain_ms[k.name]}
         for k in kernels.KERNELS.values()]}
     log(json.dumps({"recall": rec, "paths_ms_per_query": times,
-                    "gpu": card}))
+                    "path_launches": path_launches, "gpu": card}))
     log(json.dumps(summary))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,21 +29,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
+
 #define FX_THREADS 256
 #define FX_QB 64     // queries per block
 #define FX_BN 128    // rows per chunk == bins
 #define FX_KS 32     // depth of one staged slice
 #define FX_TQ 4      // queries per thread
 #define FX_TN 8      // rows (bins) per thread
-
-__device__ __forceinline__ void bf16x8_to_f32(const uint4& u, float (&f)[8]) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
 
 __global__ void __launch_bounds__(FX_THREADS)
 fused_exact_scan_kernel(const uint16_t* __restrict__ queries,

@@ -21,7 +21,7 @@ import dataclasses
 import torch
 
 from postgres_word2vec_tpu_torch.ops import topk as topk_ops
-from postgres_word2vec_tpu_torch.ops.vector_ops import row_sqnorms
+from postgres_word2vec_tpu_torch.ops.vector_ops import no_tf32, row_sqnorms
 from postgres_word2vec_tpu_torch.utils.shapes import snap_chunk
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -51,11 +51,11 @@ def _sqdist_block(q: torch.Tensor, v_chunk: torch.Tensor,
     return torch.clamp_min(qq - 2.0 * qv + vv[None, :], 0.0)
 
 
+@no_tf32()
 def exact_top_k(queries: torch.Tensor, vectors: torch.Tensor, k: int, *,
                 chunk_size: int = 262144, dtype: str = "float32"
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-scan exact top-k → ``(B, k)`` (squared L2 dists, row ids)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     compute_dtype = _dtype(dtype)
     n = vectors.shape[0]
     if n <= chunk_size:
@@ -68,6 +68,7 @@ def exact_top_k(queries: torch.Tensor, vectors: torch.Tensor, k: int, *,
         n, chunk_size, k)
 
 
+@no_tf32()
 def exact_top_k_in(queries: torch.Tensor, vectors: torch.Tensor,
                    target_ids: torch.Tensor, target_mask: torch.Tensor,
                    k: int, *, dtype: str = "float32"
@@ -75,7 +76,6 @@ def exact_top_k_in(queries: torch.Tensor, vectors: torch.Tensor,
     """Exact top-k restricted to a padded target-id set; ids are global,
     −1 where fewer than k real targets exist (``knn_in_exact``,
     sql:991-1084)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     tids = target_ids.long()
     tv = vectors[torch.clamp_min(tids, 0)]
     d = _sqdist_block(queries, tv, _dtype(dtype))
@@ -91,13 +91,13 @@ def exact_top_k_in(queries: torch.Tensor, vectors: torch.Tensor,
     return vals, ids
 
 
+@no_tf32()
 def exact_top_k_precast(queries: torch.Tensor, table: torch.Tensor,
                         norms: torch.Tensor, k: int, *,
                         chunk_size: int = 1_048_576
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Scan a pre-cast table (float32 or bfloat16) with precomputed float32
     row norms → (squared dists, ids). The top-k is exact."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     n = table.shape[0]
     qc = queries.to(table.dtype).float()
     qf = queries.float()
@@ -160,3 +160,15 @@ class ExactIndex:
                                              self._tiled_norms, k,
                                              valid_n=self._valid_n)
         return exact_top_k_precast(queries, self._table, self._norms, k)
+
+    def search_in(self, queries: torch.Tensor, k: int,
+                  target_ids: torch.Tensor,
+                  target_mask: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Exact top-k restricted to a target id set (``knn_in_exact``,
+        sql:991-1084), in the index's compute dtype; global ids."""
+        if target_mask is None:
+            target_mask = torch.ones(target_ids.shape, dtype=torch.bool,
+                                     device=target_ids.device)
+        return exact_top_k_in(queries, self.vectors, target_ids, target_mask,
+                              k, dtype=self.compute_dtype)

@@ -25,6 +25,7 @@ import torch
 
 from postgres_word2vec_tpu_torch.ops import adc, kmeans, lut
 from postgres_word2vec_tpu_torch.ops import kernels
+from postgres_word2vec_tpu_torch.ops.vector_ops import no_tf32
 
 _NOT_YET = ("arrives with ROADMAP.md queue 1, item 8 (engine: in-set kNN "
             "and online insert)")
@@ -97,6 +98,7 @@ def _warm_lloyd(x: torch.Tensor, c0: torch.Tensor, iters: int
     return kmeans.KMeansResult(c, counts, dist)
 
 
+@no_tf32()
 def train_opq_rotation(generator: torch.Generator, train: torch.Tensor,
                        m: int, k: int, *, opq_iters: int = 8,
                        kmeans_iters: int = 5
@@ -106,7 +108,6 @@ def train_opq_rotation(generator: torch.Generator, train: torch.Tensor,
     ``‖X·R − reconstruction‖²``. Rotations preserve L2, so search
     semantics are unchanged. Returns ``(rotation (d, d), codebook trained
     in the rotated basis)``."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     x = train.float()
     rot = torch.eye(x.shape[1], dtype=torch.float32, device=x.device)
     cb = None

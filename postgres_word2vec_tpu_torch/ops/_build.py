@@ -1,7 +1,8 @@
 """Build the CUDA kernels of ``csrc/`` into one shared library and load it.
 
 The sources have a plain C interface and include no PyTorch header, so
-``nvcc`` builds them in seconds. The library is built at first use into
+``nvcc`` builds them in seconds: one ``nvcc -c`` per source, all started
+together, then one link. The library is built at first use into
 ``postgres_word2vec_tpu_torch/_build/``; its file name carries a hash of
 the sources and flags, so an edited source rebuilds and a stale library is
 never loaded. Nothing here runs when the package is imported.
@@ -21,11 +22,12 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC",
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               # ptxas reports registers, shared memory and spills per
               # kernel into BuildResult.compiler_output.
               "-Xptxas", "-v")
+LINK_FLAGS = (*_ARCH, "-shared")
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 #: C entry points and their argument types (every pointer and the stream
@@ -35,6 +37,13 @@ SIGNATURES = {
     "pw2v_adc_scan_binned": (_P, _P, _I, _P, _P, _I, _I, _I, _I64, _I, _I,
                              _P),
     "pw2v_fused_exact_scan": (_P, _P, _P, _P, _P, _I, _I, _I64, _I, _P),
+    "pw2v_budget_adc": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I64, _I, _I,
+                        _P),
+    "pw2v_budget_adc_grouped": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+                                _I64, _I, _I, _I, _P),
+    "pw2v_budget_exact": (_P, _P, _P, _P, _P, _I, _I, _I64, _I, _I, _P),
+    "pw2v_budget_exact_grouped": (_P, _P, _P, _P, _P, _P, _I, _I, _I64, _I,
+                                  _I, _I, _P),
 }
 
 
@@ -53,7 +62,7 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -69,6 +78,28 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands side by side and wait for every one; raise with
+    the failing commands' output. → their stdout + stderr."""
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+        outs = [p.communicate()[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [f"{' '.join(c)}\n{o}" for c, p, o in zip(cmds, procs, outs)
+              if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return "".join(outs)
+
+
 def build() -> BuildResult:
     """Compile ``csrc/*.cu`` unless the library for the current sources
     and flags exists."""
@@ -76,22 +107,17 @@ def build() -> BuildResult:
     if path.exists():
         return BuildResult(path, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(p) for p in _sources() if p.suffix == ".cu")]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, path)      # atomic: a reader never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return BuildResult(path, time.perf_counter() - t0,
-                       proc.stdout + proc.stderr)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        srcs = [p for p in _sources() if p.suffix == ".cu"]
+        objs = [str(Path(tmp) / f"{p.stem}.o") for p in srcs]
+        report = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(p), "-o", o]
+                           for p, o in zip(srcs, objs)])
+        lib = str(Path(tmp) / "lib.so")
+        report += _run_all([[nvcc, *LINK_FLAGS, "-o", lib, *objs]])
+        os.replace(lib, path)      # atomic: a reader never sees half a file
+    return BuildResult(path, time.perf_counter() - t0, report)
 
 
 def load() -> ctypes.CDLL:

@@ -1,10 +1,11 @@
 """Asymmetric distance computation (ADC) — plain PyTorch versions.
 
 Counterpart of ``postgres_word2vec_tpu/ops/adc.py``: the per-row
-``LUT[pos·k + code]`` accumulation of ``pq_search`` (freddy.c:117-132) and
-the exact post-verification re-rank ``postverify`` (index_utils.c:477-498).
-These are the CPU path and the reference the scan kernels
-(``ops/kernels.py``) are held to.
+``LUT[pos·k + code]`` accumulation of ``pq_search`` (freddy.c:117-132),
+its in-set and per-query-rows variants, the budgeted tile-gather probes of
+IVFADC and the IVPQ join, and the exact post-verification re-rank
+``postverify`` (index_utils.c:477-498). These are the CPU path and the
+reference the scan and budget kernels (``ops/kernels.py``) are held to.
 """
 
 from __future__ import annotations
@@ -12,6 +13,11 @@ from __future__ import annotations
 import torch
 
 from postgres_word2vec_tpu_torch.ops import topk as topk_ops
+from postgres_word2vec_tpu_torch.ops.vector_ops import no_tf32
+
+#: Elements a plain budget probe gathers at once; larger query batches run
+#: in query chunks so the gathered candidate block stays bounded.
+_GATHER_ELEMS = 1 << 26
 
 
 def adc_distances(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
@@ -28,6 +34,101 @@ def adc_distances(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def adc_distances_per_query(luts: torch.Tensor, codes: torch.Tensor
+                            ) -> torch.Tensor:
+    """ADC where every query has its own candidate rows:
+    ``(B, m, k) × (B, T, m) → (B, T)`` float32,
+    ``out[b, t] = Σ_j luts[b, j, codes[b, t, j]]`` summed over j in order —
+    the per-query gather of the probe paths."""
+    lf = luts.float()
+    out = torch.zeros(codes.shape[:2], dtype=torch.float32,
+                      device=luts.device)
+    for j in range(codes.shape[2]):
+        out += torch.gather(lf[:, j], 1, codes[:, :, j].long())
+    return out
+
+
+def tile_positions(tiles: torch.Tensor, block_t: int) -> torch.Tensor:
+    """Row positions of each query's probed tiles: ``(B, P) → (B,
+    P·block_t)`` int64, slot-major (slot p covers columns
+    ``[p·block_t, (p+1)·block_t)``)."""
+    lane = torch.arange(block_t, device=tiles.device)
+    return (tiles.long()[:, :, None] * block_t
+            + lane[None, None, :]).reshape(tiles.shape[0], -1)
+
+
+def _query_chunk(per_query: int) -> int:
+    return max(1, _GATHER_ELEMS // max(per_query, 1))
+
+
+def budget_adc_xla(luts: torch.Tensor, codes_aligned: torch.Tensor,
+                   rowterm: torch.Tensor, tiles: torch.Tensor, *,
+                   block_t: int) -> torch.Tensor:
+    """Budgeted tile-gather ADC → ``(B, P·block_t)`` float32: per query,
+    the lut-sum of its P tiles of ``block_t`` cell-aligned code rows plus
+    ``rowterm`` (+inf marks pad rows and the inf tile, and stays +inf).
+
+    ``codes_aligned`` is row-major ``(NA, m)`` (a transposed view of the
+    kernels' ``(m, NA)`` table works as well). Queries run in chunks so the
+    gathered ``(B, P·block_t, m)`` codes stay bounded. The JAX package's
+    plain twin of ``budget_adc_pallas``."""
+    B = luts.shape[0]
+    pt = tiles.shape[1] * block_t
+    out = torch.empty(B, pt, dtype=torch.float32, device=luts.device)
+    step = _query_chunk(pt * codes_aligned.shape[1])
+    for s in range(0, B, step):
+        pos = tile_positions(tiles[s:s + step], block_t)
+        cand = codes_aligned[pos.reshape(-1)].reshape(*pos.shape, -1)
+        out[s:s + step] = (adc_distances_per_query(luts[s:s + step], cand)
+                           + rowterm[pos])
+    return out
+
+
+@no_tf32()
+def budget_exact_xla(queries: torch.Tensor, vecs_aligned: torch.Tensor,
+                     rownorm: torch.Tensor, tiles: torch.Tensor, *,
+                     block_t: int) -> torch.Tensor:
+    """Budgeted tile-gather exact scores → ``(B, P·block_t)`` shifted
+    scores ``‖v‖² − 2·q·v`` (+inf on padding; add ‖q‖² back for squared
+    L2). Queries and the gathered rows are float32 (a bf16 table widens
+    exactly); ``vecs_aligned`` is ``(NA, D)`` with D ≥ the query width
+    (zero-padded columns add nothing). The JAX package's plain twin of
+    ``budget_exact_pallas``, in query chunks."""
+    B, d = queries.shape
+    q = queries.float()
+    pt = tiles.shape[1] * block_t
+    out = torch.empty(B, pt, dtype=torch.float32, device=queries.device)
+    step = _query_chunk(pt * d)
+    for s in range(0, B, step):
+        pos = tile_positions(tiles[s:s + step], block_t)
+        cand = vecs_aligned[pos.reshape(-1), :d].float().reshape(
+            *pos.shape, d)
+        qv = torch.bmm(cand, q[s:s + step, :, None])[..., 0]
+        out[s:s + step] = rownorm[pos] - 2.0 * qv
+    return out
+
+
+def adc_top_k_in(luts: torch.Tensor, codes: torch.Tensor,
+                 target_ids: torch.Tensor, target_mask: torch.Tensor,
+                 k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """ADC top-k restricted to a padded target id set → ``(B, k)`` (dists,
+    global int64 ids); padding slots score +inf and surface as id −1 only
+    when fewer than k real targets exist (``pq_search_in``,
+    freddy.c:1026-1174)."""
+    tids = target_ids.long()
+    d = adc_distances(luts, codes[torch.clamp_min(tids, 0)])
+    d = torch.where(target_mask[None, :], d, torch.full_like(d, float("inf")))
+    k_eff = min(k, tids.shape[0])
+    vals, pos = topk_ops.top_k_smallest(d, k_eff)
+    ids = torch.where(torch.isfinite(vals), tids[pos],
+                      torch.full_like(pos, -1))
+    if k_eff < k:
+        vals = torch.nn.functional.pad(vals, (0, k - k_eff),
+                                       value=float("inf"))
+        ids = torch.nn.functional.pad(ids, (0, k - k_eff), value=-1)
+    return vals, ids
+
+
 def adc_top_k(luts: torch.Tensor, codes: torch.Tensor, k: int, *,
               chunk_size: int = 131072
               ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -40,6 +141,7 @@ def adc_top_k(luts: torch.Tensor, codes: torch.Tensor, k: int, *,
         codes.shape[0], chunk_size, k)
 
 
+@no_tf32()
 def post_verify(queries: torch.Tensor, cand_ids: torch.Tensor,
                 cand_dists: torch.Tensor, vectors: torch.Tensor, k: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -51,7 +153,6 @@ def post_verify(queries: torch.Tensor, cand_ids: torch.Tensor,
 
     Parity: ``postverify`` (index_utils.c:477-498) and
     ``k_nearest_neighbour_pq_pv`` (freddy--0.0.1.sql:625-662)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     q = queries.float()                                        # (B, d)
     ids = cand_ids.long()
     cv = vectors[torch.clamp_min(ids, 0)].float()              # (B, C, d)

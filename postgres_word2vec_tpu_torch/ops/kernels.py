@@ -1,15 +1,27 @@
-"""The search path's scan kernels for Hopper, their wrappers and their
-plain PyTorch versions.
+"""The search paths' scan and probe kernels for Hopper, their wrappers and
+their plain PyTorch versions.
 
-Counterpart of ``postgres_word2vec_tpu/ops/pallas_kernels.py`` for slice 1
-of the port. Three kernels, written in CUDA C++ for ``sm_90a`` (sources in
-``csrc/``, built by ``ops/_build.py``):
+Counterpart of ``postgres_word2vec_tpu/ops/pallas_kernels.py`` for slices
+1 and 2 of the port. Seven kernels, written in CUDA C++ for ``sm_90a``
+(sources in ``csrc/``, built by ``ops/_build.py``):
 
 - K1 :func:`fused_exact_scan` — brute-force bf16 scan fused with a
   strided-bin min/argmin (``csrc/fused_exact_scan.cu``);
 - K2 :func:`adc_scan` — dense ADC distances (``csrc/adc_scan.cu``);
 - K4 :func:`adc_scan_binned` — ADC fused with a strided-bin min/argmin
-  (``csrc/adc_scan_binned.cu``).
+  (``csrc/adc_scan_binned.cu``);
+- K6 :func:`budget_adc` — budgeted tile-gather ADC, one query per block
+  (``csrc/budget_adc.cu``), the IVFADC probe and the sparse join;
+- K7 :func:`budget_adc_grouped` — the same contract with the (query,
+  tile) pairs grouped by tile (``csrc/budget_adc_grouped.cu``);
+- K9 :func:`budget_exact` — budgeted tile-gather exact scores
+  (``csrc/budget_exact.cu``), the join's ``method=1``;
+- K10 :func:`budget_exact_grouped` — its tile-grouped twin
+  (``csrc/budget_exact_grouped.cu``).
+
+:func:`budget_adc_auto` / :func:`budget_exact_auto` choose between the
+per-query and grouped kernels with the JAX package's rule
+(``_grouped_wins``, ``GROUPED_ROWS_DEFAULT``), carried over unchanged.
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything
 the kernel does not take; it runs the plain version (``*_plain``, same
@@ -33,10 +45,13 @@ import torch.nn.functional as F
 
 from postgres_word2vec_tpu_torch.ops import adc
 from postgres_word2vec_tpu_torch.ops import topk as topk_ops
-from postgres_word2vec_tpu_torch.ops.vector_ops import row_sqnorms
+from postgres_word2vec_tpu_torch.ops.vector_ops import no_tf32, row_sqnorms
 
 _PALLAS = "postgres_word2vec_tpu/ops/pallas_kernels.py"
 _CSRC = "postgres_word2vec_tpu_torch/csrc"
+
+#: The ROADMAP item that brings int8 LUTs to the card.
+INT8_LUT_ITEM = "ROADMAP.md queue 2, kernels K3, K5 and K8 (int8 LUTs)"
 
 
 @dataclasses.dataclass
@@ -57,6 +72,16 @@ KERNELS: dict[str, Kernel] = {
     "adc_scan_binned": Kernel("adc_scan_binned",
                               f"{_CSRC}/adc_scan_binned.cu",
                               f"{_PALLAS}:220"),
+    "budget_adc": Kernel("budget_adc", f"{_CSRC}/budget_adc.cu",
+                         f"{_PALLAS}:492"),
+    "budget_adc_grouped": Kernel("budget_adc_grouped",
+                                 f"{_CSRC}/budget_adc_grouped.cu",
+                                 f"{_PALLAS}:702"),
+    "budget_exact": Kernel("budget_exact", f"{_CSRC}/budget_exact.cu",
+                           f"{_PALLAS}:589"),
+    "budget_exact_grouped": Kernel("budget_exact_grouped",
+                                   f"{_CSRC}/budget_exact_grouped.cu",
+                                   f"{_PALLAS}:818"),
 }
 
 #: One query's float32 LUT must fit in a block's shared memory (227 KB).
@@ -320,6 +345,7 @@ def pad_queries(queries: torch.Tensor, dim: int) -> torch.Tensor:
     return q.contiguous()
 
 
+@no_tf32()
 def fused_exact_scan_plain(queries: torch.Tensor, table: torch.Tensor,
                            norms: torch.Tensor, *, block_n: int = 8192,
                            bins: int = 128, chunk_tiles: int = 32
@@ -327,7 +353,6 @@ def fused_exact_scan_plain(queries: torch.Tensor, table: torch.Tensor,
     """Plain version of :func:`fused_exact_scan`: bf16 operands widened to
     float32 (exactly) and multiplied in float32 (TF32 off), ``chunk_tiles``
     tiles at a time, then the strided-bin min/argmin."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     qf = queries.float()
     n_tiles = table.shape[0] // block_n
     mins, ids = [], []
@@ -395,3 +420,280 @@ def fused_exact_top_k(queries: torch.Tensor, table: torch.Tensor,
     qf = queries.float()
     qq = torch.sum(qf * qf, dim=-1, keepdim=True)
     return torch.clamp_min(vals + qq, 0.0), sel
+
+
+# ------------------------------------------------ K6/K7/K9/K10: budget probes
+#
+# A budget probe scans, per query, P tiles of ``block_t`` rows of a
+# cell-aligned table (each cell's rows padded to whole tiles, one trailing
+# all-padding "inf tile"): ``tiles`` is a (B, P) tensor of tile ids and the
+# result is (B, P·block_t) float32, slot p in columns [p·block_t,
+# (p+1)·block_t). +inf in ``rowterm`` / ``rownorm`` marks pad rows and the
+# inf tile and stays +inf. The grouped kernels sort the (query, slot) pairs
+# by tile first, so ``rows`` queries share one tile, and gather the result
+# back into the same contract; the grouping changes no value, so their plain
+# versions are the per-query ones.
+
+#: Queries per group of the grouped kernels (the JAX package's on-chip
+#: sweep on its TPU, carried over; re-fitting it on the H100 is open).
+GROUPED_ROWS_DEFAULT = 32
+
+
+def _grouped_wins(bp: int, n_tiles: int, rows: int, slot_bytes: int) -> bool:
+    """True when the grouped layout's program bound ``⌈bp/rows⌉ + n_tiles``
+    beats the per-query ``bp`` by ≥2× and its expanded per-slot copy stays
+    under 128 MiB — the JAX package's rule, carried over unchanged."""
+    groups = -(-bp // rows) + n_tiles
+    return groups * 2 < bp and groups * rows * slot_bytes <= 128 * 2**20
+
+
+def _group_probe_layout(tiles: torch.Tensor, n_queries: int, p: int,
+                        groups: int, inf_tile: int, rows: int = 8
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Regroup (query, tile-slot) pairs by tile into ``rows``-query groups:
+
+      qidx (groups, rows) int32 — query per slot (``n_queries`` = unused)
+      tog  (groups,)      int32 — tile per group (``inf_tile`` for padding)
+      row  (B·P,)         int64 — grouped row of each flat (query-major)
+                                  pair, for reassembly
+
+    A stable sort by tile, then each run of equal tiles fills whole groups
+    from their first slot. ``groups`` must be ≥ ⌈B·P/rows⌉ + the number of
+    distinct tiles."""
+    bp = tiles.numel()
+    dev = tiles.device
+    s, order = torch.sort(tiles.reshape(bp).to(torch.int32), stable=True)
+    idx = torch.arange(bp, device=dev)
+    head = torch.ones(bp, dtype=torch.bool, device=dev)
+    head[1:] = s[1:] != s[:-1]
+    run_start = torch.cummax(torch.where(head, idx, 0), 0).values
+    j = idx - run_start
+    gid = torch.cumsum((j % rows == 0).to(torch.int64), 0) - 1
+    row_sorted = gid * rows + j % rows
+    qidx = torch.full((groups * rows,), n_queries, dtype=torch.int32,
+                      device=dev)
+    qidx[row_sorted] = (order // p).to(torch.int32)
+    tog = torch.full((groups,), inf_tile, dtype=torch.int32, device=dev)
+    tog[gid] = s
+    row = torch.empty(bp, dtype=torch.int64, device=dev)
+    row[order] = row_sorted
+    return qidx.reshape(groups, rows), tog, row
+
+
+def _grouped_layout(tiles: torch.Tensor, n_tiles: int, rows: int):
+    """:func:`_group_probe_layout` with the static group bound."""
+    B, P = tiles.shape
+    groups = -(-B * P // rows) + n_tiles
+    return _group_probe_layout(tiles, B, P, groups, n_tiles - 1, rows)
+
+
+def _reassemble(out_rows: torch.Tensor, row: torch.Tensor,
+                tiles: torch.Tensor) -> torch.Tensor:
+    """Grouped ``(G·rows, block_t)`` rows → the ``(B, P·block_t)``
+    contract."""
+    B, P = tiles.shape
+    return out_rows.index_select(0, row).reshape(B, P * out_rows.shape[1])
+
+
+def _check_budget(table_rows: int, block_t: int, tiles: torch.Tensor,
+                  B: int, term: torch.Tensor) -> torch.Tensor:
+    """Shape checks shared by the four wrappers → int32 contiguous tiles."""
+    _require(block_t >= 1 and table_rows >= block_t
+             and table_rows % block_t == 0,
+             f"NA={table_rows} is not a multiple of block_t={block_t}")
+    _require(tiles.dim() == 2 and tiles.shape[0] == B and tiles.shape[1] >= 1,
+             f"tiles must be (B={B}, P≥1), got {tuple(tiles.shape)}")
+    _require(term.shape == (table_rows,) and term.dtype == torch.float32
+             and term.is_contiguous(),
+             f"row term must be contiguous float32 ({table_rows},), got "
+             f"{term.dtype} {tuple(term.shape)}")
+    return tiles.to(torch.int32).contiguous()
+
+
+# K6 -------------------------------------------------------------------------
+
+def budget_adc_plain(luts: torch.Tensor, codes_t: torch.Tensor,
+                     rowterm: torch.Tensor, tiles: torch.Tensor, *,
+                     block_t: int) -> torch.Tensor:
+    """Plain version of :func:`budget_adc` (``adc.budget_adc_xla`` on the
+    transposed code table): LUT sums over subspaces in order, then the row
+    term — the kernel's order, so float32 results agree bit for bit."""
+    return adc.budget_adc_xla(luts, codes_t.t(), rowterm, tiles,
+                              block_t=block_t)
+
+
+def budget_adc(luts: torch.Tensor, codes_t: torch.Tensor,
+               rowterm: torch.Tensor, tiles: torch.Tensor, *,
+               block_t: int) -> torch.Tensor:
+    """Budgeted tile-gather ADC → ``(B, P·block_t)`` float32 (K6).
+
+    ``luts`` (B, m, k) float32 per-query LUTs; ``codes_t`` (m, NA)
+    uint8/int16 cell-aligned codes, NA a multiple of ``block_t``;
+    ``rowterm`` (NA,) float32 additive row term (+inf on padding);
+    ``tiles`` (B, P) tile ids. On the card an id outside the table reads
+    as the inf tile."""
+    if not _on_cuda(luts, codes_t, rowterm, tiles):
+        return budget_adc_plain(luts, codes_t, rowterm, tiles,
+                                block_t=block_t)
+    _check_adc_inputs(luts, codes_t)
+    B, m, k = luts.shape
+    na = codes_t.shape[1]
+    t = _check_budget(na, block_t, tiles, B, rowterm)
+    P = t.shape[1]
+    out = torch.empty(B, P * block_t, dtype=torch.float32, device=luts.device)
+    _launch("budget_adc", "pw2v_budget_adc", luts.data_ptr(),
+            codes_t.data_ptr(), codes_t.element_size(), rowterm.data_ptr(),
+            t.data_ptr(), out.data_ptr(), B, m, k, na, P, block_t, _stream())
+    return out
+
+
+# K7 -------------------------------------------------------------------------
+
+def budget_adc_grouped(luts: torch.Tensor, codes_t: torch.Tensor,
+                       rowterm: torch.Tensor, tiles: torch.Tensor, *,
+                       block_t: int, rows: int = 8) -> torch.Tensor:
+    """Tile-grouped budgeted ADC (K7), :func:`budget_adc`'s contract: the
+    (query, slot) pairs are sorted by tile (:func:`_group_probe_layout`,
+    torch glue), ``rows`` queries per block share one code tile, and one
+    row gather reassembles ``(B, P·block_t)``. CPU tensors take
+    :func:`budget_adc_plain`."""
+    if not _on_cuda(luts, codes_t, rowterm, tiles):
+        return budget_adc_plain(luts, codes_t, rowterm, tiles,
+                                block_t=block_t)
+    _check_adc_inputs(luts, codes_t)
+    B, m, k = luts.shape
+    na = codes_t.shape[1]
+    t = _check_budget(na, block_t, tiles, B, rowterm)
+    _require(rows >= 1, f"rows must be ≥ 1, got {rows}")
+    qidx, tog, row = _grouped_layout(t, na // block_t, rows)
+    groups = tog.shape[0]
+    out = torch.empty(groups * rows, block_t, dtype=torch.float32,
+                      device=luts.device)
+    _launch("budget_adc_grouped", "pw2v_budget_adc_grouped", luts.data_ptr(),
+            codes_t.data_ptr(), codes_t.element_size(), rowterm.data_ptr(),
+            qidx.data_ptr(), tog.data_ptr(), out.data_ptr(), B, m, k, na,
+            groups, rows, block_t, _stream())
+    return _reassemble(out, row, t)
+
+
+def budget_adc_auto(luts: torch.Tensor, codes_t: torch.Tensor,
+                    rowterm: torch.Tensor, tiles: torch.Tensor, *,
+                    block_t: int, rows: int | None = None,
+                    lut_dtype: str = "bf16") -> torch.Tensor:
+    """Grouped (K7) for probe sets over few tiles (the join regime),
+    per-query (K6) otherwise — the JAX ``budget_adc_auto`` rule.
+    ``lut_dtype="int8"`` needs K8: it raises on the card and is ignored by
+    the plain versions, as the JAX package's plain twin ignores it."""
+    if lut_dtype not in ("bf16", "int8"):
+        raise ValueError(f"lut_dtype must be 'bf16' or 'int8', "
+                         f"got {lut_dtype!r}")
+    if lut_dtype == "int8" and luts.is_cuda:
+        raise NotImplementedError(f"lut_dtype='int8': {INT8_LUT_ITEM}")
+    rows = GROUPED_ROWS_DEFAULT if rows is None else rows
+    B, m, k = luts.shape
+    slot_bytes = m * k * (1 if lut_dtype == "int8" else 2)
+    if _grouped_wins(B * tiles.shape[1], codes_t.shape[1] // block_t, rows,
+                     slot_bytes):
+        return budget_adc_grouped(luts, codes_t, rowterm, tiles,
+                                  block_t=block_t, rows=rows)
+    return budget_adc(luts, codes_t, rowterm, tiles, block_t=block_t)
+
+
+# K9 -------------------------------------------------------------------------
+
+def _check_exact_inputs(queries: torch.Tensor, vecs: torch.Tensor) -> None:
+    _require(vecs.dim() == 2 and vecs.dtype == torch.bfloat16
+             and vecs.is_contiguous() and vecs.data_ptr() % 16 == 0,
+             f"vecs must be contiguous 16-byte aligned bf16 (NA, D), got "
+             f"{vecs.dtype} {tuple(vecs.shape)}")
+    D = vecs.shape[1]
+    _require(D % 8 == 0 and 8 <= D <= 1024,
+             f"row width {D} must be a multiple of 8 in [8, 1024]")
+    _require(queries.dim() == 2 and queries.shape[0] >= 1
+             and queries.shape[1] <= D,
+             f"queries {tuple(queries.shape)} wider than the table ({D})")
+
+
+def _pad_f32(queries: torch.Tensor, dim: int) -> torch.Tensor:
+    """float32 queries zero-padded to the table's row width."""
+    q = queries.float()
+    if q.shape[1] < dim:
+        q = F.pad(q, (0, dim - q.shape[1]))
+    return q.contiguous()
+
+
+def budget_exact_plain(queries: torch.Tensor, vecs: torch.Tensor,
+                       rownorm: torch.Tensor, tiles: torch.Tensor, *,
+                       block_t: int) -> torch.Tensor:
+    """Plain version of :func:`budget_exact` (``adc.budget_exact_xla``):
+    float32 queries against the bf16 rows widened to float32, a float32
+    matmul with TF32 off."""
+    return adc.budget_exact_xla(queries, vecs, rownorm, tiles,
+                                block_t=block_t)
+
+
+def budget_exact(queries: torch.Tensor, vecs: torch.Tensor,
+                 rownorm: torch.Tensor, tiles: torch.Tensor, *,
+                 block_t: int) -> torch.Tensor:
+    """Budgeted tile-gather exact scores → ``(B, P·block_t)`` shifted
+    scores ``‖v‖² − 2·q·v`` (K9); add ‖q‖² back for squared L2.
+
+    ``queries`` (B, d) float, kept float32; ``vecs`` (NA, D) bf16
+    row-major cell-aligned rows, D a multiple of 8 ≥ d (pad rows zero);
+    ``rownorm`` (NA,) float32 ‖v‖², +inf on padding."""
+    if not _on_cuda(queries, vecs, rownorm, tiles):
+        return budget_exact_plain(queries, vecs, rownorm, tiles,
+                                  block_t=block_t)
+    _check_exact_inputs(queries, vecs)
+    B = queries.shape[0]
+    na, D = vecs.shape
+    t = _check_budget(na, block_t, tiles, B, rownorm)
+    P = t.shape[1]
+    q = _pad_f32(queries, D)
+    out = torch.empty(B, P * block_t, dtype=torch.float32,
+                      device=queries.device)
+    _launch("budget_exact", "pw2v_budget_exact", q.data_ptr(),
+            vecs.data_ptr(), rownorm.data_ptr(), t.data_ptr(),
+            out.data_ptr(), B, D, na, P, block_t, _stream())
+    return out
+
+
+# K10 ------------------------------------------------------------------------
+
+def budget_exact_grouped(queries: torch.Tensor, vecs: torch.Tensor,
+                         rownorm: torch.Tensor, tiles: torch.Tensor, *,
+                         block_t: int, rows: int = 8) -> torch.Tensor:
+    """Tile-grouped budgeted exact scores (K10), :func:`budget_exact`'s
+    contract: ``rows`` ≤ 32 queries per block share one vector tile. CPU
+    tensors take :func:`budget_exact_plain`."""
+    if not _on_cuda(queries, vecs, rownorm, tiles):
+        return budget_exact_plain(queries, vecs, rownorm, tiles,
+                                  block_t=block_t)
+    _check_exact_inputs(queries, vecs)
+    _require(1 <= rows <= 32, f"rows must be in [1, 32], got {rows}")
+    B = queries.shape[0]
+    na, D = vecs.shape
+    t = _check_budget(na, block_t, tiles, B, rownorm)
+    qidx, tog, row = _grouped_layout(t, na // block_t, rows)
+    groups = tog.shape[0]
+    q = _pad_f32(queries, D)
+    out = torch.empty(groups * rows, block_t, dtype=torch.float32,
+                      device=queries.device)
+    _launch("budget_exact_grouped", "pw2v_budget_exact_grouped",
+            q.data_ptr(), vecs.data_ptr(), rownorm.data_ptr(),
+            qidx.data_ptr(), tog.data_ptr(), out.data_ptr(), B, D, na,
+            groups, rows, block_t, _stream())
+    return _reassemble(out, row, t)
+
+
+def budget_exact_auto(queries: torch.Tensor, vecs: torch.Tensor,
+                      rownorm: torch.Tensor, tiles: torch.Tensor, *,
+                      block_t: int, rows: int | None = None) -> torch.Tensor:
+    """Grouped (K10) / per-query (K9) dispatch, the same rule as
+    :func:`budget_adc_auto` with a bf16 query row as the slot size."""
+    rows = GROUPED_ROWS_DEFAULT if rows is None else rows
+    if _grouped_wins(queries.shape[0] * tiles.shape[1],
+                     vecs.shape[0] // block_t, rows, queries.shape[1] * 2):
+        return budget_exact_grouped(queries, vecs, rownorm, tiles,
+                                    block_t=block_t, rows=rows)
+    return budget_exact(queries, vecs, rownorm, tiles, block_t=block_t)

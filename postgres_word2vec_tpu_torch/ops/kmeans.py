@@ -1,4 +1,4 @@
-"""k-means — codebook training for the PQ family, on torch tensors.
+"""k-means — codebook training for every index family, on torch tensors.
 
 Counterpart of ``postgres_word2vec_tpu/ops/kmeans.py``. Assignment is one
 matmul + argmin per row chunk (the ``‖x‖²`` term is assignment-invariant
@@ -6,11 +6,12 @@ and dropped where only the argmin matters); the update step is a
 ``scatter_add``. The JAX package ``vmap``s one k-means over the m
 subspaces; here the subspace axis is a batch dimension written out:
 every function below takes ``x`` as ``(n, d)`` or ``(m, n, d)`` with
-centroids ``(k, d)`` or ``(m, k, d)``.
+centroids ``(k, d)`` or ``(m, k, d)``. The flat :func:`kmeans` (the IVFADC
+coarse quantizer) is the same Lloyd run with no leading dims.
 
 float32 matmuls here must not run in TF32 (the JAX package pins
-``Precision.HIGHEST``); the public entry points switch TF32 off, which is
-also PyTorch's default.
+``Precision.HIGHEST``); the public entry points run under
+:func:`~postgres_word2vec_tpu_torch.ops.vector_ops.no_tf32`.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from postgres_word2vec_tpu_torch.ops import topk as topk_ops
+from postgres_word2vec_tpu_torch.ops.vector_ops import no_tf32
 
 
 class KMeansResult(NamedTuple):
@@ -28,15 +30,23 @@ class KMeansResult(NamedTuple):
     distortion: torch.Tensor   # (…,) mean point↔centroid distance
 
 
-def _no_tf32() -> None:
-    torch.backends.cuda.matmul.allow_tf32 = False
-
-
 def _chunk_scores(xc: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """``x·cᵀ`` for one row chunk, batched over leading dims."""
     return torch.matmul(xc.float(), c.transpose(-1, -2))
 
 
+@no_tf32()
+def pairwise_sqdist(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Squared L2 distances ``(n, d) × (k, d) → (n, k)`` float32: one
+    matmul plus rank-1 corrections, clamped at 0 against cancellation."""
+    x = x.float()
+    c = c.float()
+    xx = torch.sum(x * x, dim=-1, keepdim=True)
+    cc = torch.sum(c * c, dim=-1)
+    return torch.clamp_min(xx - 2.0 * (x @ c.t()) + cc[None, :], 0.0)
+
+
+@no_tf32()
 def assign(x: torch.Tensor, centroids: torch.Tensor, *,
            chunk_size: int = 65536) -> torch.Tensor:
     """Nearest-centroid assignment ``(…, n, d) → (…, n)`` int64, chunked
@@ -101,13 +111,13 @@ def _lloyd_step_repair(x: torch.Tensor, centroids: torch.Tensor
     return new_c, counts.to(torch.int32), distortion
 
 
+@no_tf32()
 def kmeans_plus_plus_init(generator: torch.Generator, x: torch.Tensor,
                           k: int) -> torch.Tensor:
     """k-means++ (D² sampling) initialization: ``(…, n, d) → (…, k, d)``.
 
     k − 1 sequential draws; each is one (n, d) distance update, batched
     over the leading dims. A draw ∝ D² is Gumbel-top-1 over log D²."""
-    _no_tf32()
     xf = x.float()
     *lead, n, d = xf.shape
     xx = torch.sum(xf * xf, dim=-1)                           # (…, n)
@@ -159,6 +169,7 @@ def _kmeans_single(generator: torch.Generator, x: torch.Tensor, k: int,
     return KMeansResult(c, counts, distortion)
 
 
+@no_tf32()
 def kmeans_subspaces(generator: torch.Generator, x_sub: torch.Tensor,
                      k: int, iters: int = 10, *, restarts: int = 1,
                      init: str = "sample") -> KMeansResult:
@@ -168,7 +179,6 @@ def kmeans_subspaces(generator: torch.Generator, x_sub: torch.Tensor,
     per-subspace loop, quantizer_creation.py:13-29). With ``restarts > 1``
     each subspace keeps its own best restart (scipy ``kmeans(iter=R)``
     semantics)."""
-    _no_tf32()
     best = None
     for _ in range(max(restarts, 1)):
         res = _kmeans_single(generator, x_sub, k, iters, init)
@@ -192,32 +202,72 @@ def split_subspaces(x: torch.Tensor, m: int) -> torch.Tensor:
     return x.reshape(n, m, d // m).permute(1, 0, 2)
 
 
-def encode_subspaces(x: torch.Tensor, codebooks: torch.Tensor, *,
-                     chunk_size: int = 65536,
-                     rotation: torch.Tensor | None = None) -> torch.Tensor:
-    """PQ-encode: ``(n, d) × (m, k, dsub) → (n, m)`` small-int codes.
+@no_tf32()
+def kmeans(generator: torch.Generator, x: torch.Tensor, k: int,
+           iters: int = 10, *, restarts: int = 1,
+           init: str = "sample") -> KMeansResult:
+    """Flat Lloyd's k-means ``(n, d) → (k, d)`` with final-assignment
+    counts (scipy ``kmeans(…, iter=restarts)`` parity,
+    quantizer_creation.py:25: the restart with the lowest distortion
+    wins). Same repaired Lloyd steps and inits as the subspace runs."""
+    best = None
+    for _ in range(max(restarts, 1)):
+        res = _kmeans_single(generator, x, k, iters, init)
+        if best is None or float(res.distortion) < float(best.distortion):
+            best = res
+    return best
 
-    Chunked over rows before the subspace split, so neither a transposed
-    nor a rotated float32 copy of the full table ever exists (at 3M×300 it
-    would be 3.6 GB). ``rotation`` is an optional (d, d) OPQ basis applied
-    per chunk. Code dtype is uint8 when k ≤ 256, else int16.
-    """
-    _no_tf32()
+
+def _encode_chunks(x: torch.Tensor, codebooks: torch.Tensor,
+                   chunk_size: int, prepare) -> torch.Tensor:
+    """Nearest-codeword codes of ``prepare(start, x_chunk_f32)`` per row
+    chunk → ``(n, m)`` uint8 (k ≤ 256) or int16. Chunked over rows before
+    the subspace split, so no transformed float32 copy of the whole table
+    ever exists."""
     m, k, dsub = codebooks.shape
     n, d = x.shape
     if d != m * dsub:
         raise ValueError(f"dim {d} != m·dsub = {m}·{dsub}")
     cb = codebooks.float()
     cc = torch.sum(cb * cb, dim=-1).unsqueeze(1)              # (m, 1, k)
-    rot = None if rotation is None else rotation.float()
     out = torch.empty(n, m, dtype=torch.uint8 if k <= 256 else torch.int16,
                       device=x.device)
     for s in range(0, n, chunk_size):
-        xf = x[s:s + chunk_size].float()
-        if rot is not None:
-            xf = xf @ rot
+        xf = prepare(s, x[s:s + chunk_size].float())
         xs = xf.reshape(-1, m, dsub).permute(1, 0, 2)         # (m, c, dsub)
         scores = torch.bmm(xs, cb.transpose(1, 2))            # (m, c, k)
         codes = torch.argmin(cc - 2.0 * scores, dim=-1)       # (m, c)
         out[s:s + chunk_size] = codes.t().to(out.dtype)
     return out
+
+
+@no_tf32()
+def encode_subspaces(x: torch.Tensor, codebooks: torch.Tensor, *,
+                     chunk_size: int = 65536,
+                     rotation: torch.Tensor | None = None) -> torch.Tensor:
+    """PQ-encode: ``(n, d) × (m, k, dsub) → (n, m)`` small-int codes.
+
+    Neither a transposed nor a rotated float32 copy of the full table ever
+    exists (at 3M×300 it would be 3.6 GB). ``rotation`` is an optional
+    (d, d) OPQ basis applied per chunk. Code dtype is uint8 when k ≤ 256,
+    else int16.
+    """
+    rot = None if rotation is None else rotation.float()
+    return _encode_chunks(x, codebooks, chunk_size,
+                          lambda s, xf: xf if rot is None else xf @ rot)
+
+
+@no_tf32()
+def encode_residual_subspaces(x: torch.Tensor,
+                              coarse_centroids: torch.Tensor,
+                              assignments: torch.Tensor,
+                              codebooks: torch.Tensor, *,
+                              chunk_size: int = 65536) -> torch.Tensor:
+    """Fused residual PQ encode: ``codes[i] = encode(x[i] −
+    coarse[assignments[i]])`` → ``(n, m)``, chunk by chunk, so the full
+    residual table (3.6 GB at 3M×300) is never materialized."""
+    coarse = coarse_centroids.float()
+    a = assignments.long()
+    return _encode_chunks(
+        x, codebooks, chunk_size,
+        lambda s, xf: xf - coarse[a[s:s + xf.shape[0]]])

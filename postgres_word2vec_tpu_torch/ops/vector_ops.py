@@ -8,9 +8,25 @@ ADC paths (freddy--0.0.1.sql:511,526,547). Accumulation is float32.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 _EPS = 1e-12
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Run float32 matmuls on the card in full float32 (TF32 off) inside
+    the block, as the JAX package pins ``Precision.HIGHEST`` per call, and
+    give the caller back its own ``allow_tf32`` setting after it. Also a
+    decorator."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def vec_normalize(a: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,13 @@ Tolerances:
   its own bin and points at a row whose dense distance equals the bin min
   within 1e-5;
 - K1 fused exact: the same contract with atol 1e-3 — bf16 inputs, float32
-  sums over 304 terms taken in another order than cuBLAS's.
+  sums over 304 terms taken in another order than cuBLAS's;
+- K6 / K7 budget ADC: atol 1e-5 on the finite entries and the same +inf
+  entries (subspaces summed in the plain version's order, then the row
+  term: they agree bit for bit in practice);
+- K9 / K10 budget exact: atol 1e-4 on the finite shifted scores and the
+  same +inf entries (float32 queries, bf16 rows widened exactly, float32
+  sums over 304 products in another order than the plain matmul's).
 """
 
 import numpy as np
@@ -31,6 +37,10 @@ N_EDGES = (2047, 2048, 2049, 8191, 8193)
 B_EDGES = (1, 257)
 CODEBOOKS = ((12, 256, torch.uint8), (60, 16, torch.uint8),
              (12, 1024, torch.int16))
+BLOCKS = (128, 256, 1024)
+# IVFADC residuals, the IVPQ join's fine codebook, its fused-pair LUTs.
+BUDGET_BOOKS = ((12, 256, torch.uint8), (30, 32, torch.uint8),
+                (15, 1024, torch.int16))
 
 
 def _adc_inputs(seed, B, m, k, n, dtype):
@@ -134,3 +144,202 @@ def test_engine_on_cuda_matches_cpu(tmp_path):
             assert (i_g.cpu() == i_c).float().mean() >= 0.99, family
         if family != "k_nearest_neighbour_pq":
             assert gpu.knn("w7", 3)[0][0] == "w7"
+
+
+# ------------------------------------------------------ budget probes
+
+def _budget_case(seed, B, m, k, dtype, block_t, nt=6, P=5):
+    """A cell-aligned table of nt tiles + the inf tile, pad rows in tile 1,
+    and tile plans that include the inf tile."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    na = (nt + 1) * block_t
+    luts = torch.rand(B, m, k, generator=g, device="cuda") * 4.0
+    codes_t = torch.randint(0, k, (m, na), generator=g,
+                            device="cuda").to(dtype)
+    rowterm = torch.randn(na, generator=g, device="cuda")
+    rowterm[block_t + block_t // 2:2 * block_t] = float("inf")
+    rowterm[nt * block_t:] = float("inf")
+    tiles = torch.randint(0, nt + 1, (B, P), generator=g, device="cuda",
+                          dtype=torch.int32)
+    return luts, codes_t, rowterm, tiles
+
+
+def _assert_budget_close(got, want, atol):
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    assert not torch.isnan(got).any()
+    err = float((got - want)[fin].abs().max()) if fin.any() else 0.0
+    assert err <= atol, err
+
+
+@pytest.mark.parametrize("block_t", BLOCKS)
+@pytest.mark.parametrize("B", B_EDGES)
+@pytest.mark.parametrize("m,k,dtype", BUDGET_BOOKS)
+def test_budget_adc_matches_plain(block_t, B, m, k, dtype):
+    luts, codes_t, rowterm, tiles = _budget_case(block_t + B + m, B, m, k,
+                                                 dtype, block_t)
+    before = kernels.KERNELS["budget_adc"].launches
+    got = kernels.budget_adc(luts, codes_t, rowterm, tiles, block_t=block_t)
+    assert kernels.KERNELS["budget_adc"].launches == before + 1
+    want = kernels.budget_adc_plain(luts, codes_t, rowterm, tiles,
+                                    block_t=block_t)
+    _assert_budget_close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("block_t", BLOCKS)
+@pytest.mark.parametrize("B", B_EDGES)
+@pytest.mark.parametrize("m,k,dtype", BUDGET_BOOKS)
+def test_budget_adc_grouped_matches_plain(block_t, B, m, k, dtype):
+    luts, codes_t, rowterm, tiles = _budget_case(2 * block_t + B + m, B, m,
+                                                 k, dtype, block_t)
+    before = kernels.KERNELS["budget_adc_grouped"].launches
+    got = kernels.budget_adc_grouped(luts, codes_t, rowterm, tiles,
+                                     block_t=block_t, rows=32)
+    assert kernels.KERNELS["budget_adc_grouped"].launches == before + 1
+    _assert_budget_close(got, kernels.budget_adc_plain(
+        luts, codes_t, rowterm, tiles, block_t=block_t), 1e-5)
+
+
+def _exact_case(seed, B, block_t, d=300, nt=6, P=5):
+    rng = np.random.default_rng(seed)
+    na = (nt + 1) * block_t
+    v = rng.normal(size=(na, d)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    v[block_t + block_t // 2:2 * block_t] = 0.0       # pad rows
+    v[nt * block_t:] = 0.0                             # the inf tile
+    vt = torch.as_tensor(v, device="cuda")
+    vecs = torch.zeros(na, 304, dtype=torch.bfloat16, device="cuda")
+    vecs[:, :d] = vt.to(torch.bfloat16)
+    rownorm = torch.sum(vt * vt, dim=1)
+    rownorm[block_t + block_t // 2:2 * block_t] = float("inf")
+    rownorm[nt * block_t:] = float("inf")
+    q = vt[torch.as_tensor(rng.integers(0, block_t, B), device="cuda")]
+    tiles = torch.as_tensor(rng.integers(0, nt + 1, (B, P)), device="cuda",
+                            dtype=torch.int32)
+    return q.contiguous(), vecs, rownorm, tiles
+
+
+@pytest.mark.parametrize("block_t", BLOCKS)
+@pytest.mark.parametrize("B", B_EDGES)
+def test_budget_exact_matches_plain(block_t, B):
+    q, vecs, rownorm, tiles = _exact_case(block_t + B, B, block_t)
+    before = kernels.KERNELS["budget_exact"].launches
+    got = kernels.budget_exact(q, vecs, rownorm, tiles, block_t=block_t)
+    assert kernels.KERNELS["budget_exact"].launches == before + 1
+    want = kernels.budget_exact_plain(q, vecs, rownorm, tiles,
+                                      block_t=block_t)
+    _assert_budget_close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("block_t", BLOCKS)
+@pytest.mark.parametrize("B", B_EDGES)
+@pytest.mark.parametrize("rows", (8, 32))
+def test_budget_exact_grouped_matches_plain(block_t, B, rows):
+    q, vecs, rownorm, tiles = _exact_case(2 * block_t + B, B, block_t)
+    before = kernels.KERNELS["budget_exact_grouped"].launches
+    got = kernels.budget_exact_grouped(q, vecs, rownorm, tiles,
+                                       block_t=block_t, rows=rows)
+    assert kernels.KERNELS["budget_exact_grouped"].launches == before + 1
+    _assert_budget_close(got, kernels.budget_exact_plain(
+        q, vecs, rownorm, tiles, block_t=block_t), 1e-4)
+
+
+def test_budget_kernels_read_a_bad_tile_as_the_inf_tile():
+    luts, codes_t, rowterm, tiles = _budget_case(7, 3, 12, 256, torch.uint8,
+                                                 128)
+    tiles[0, 0], tiles[1, 1] = -1, 10 ** 6
+    for fn in (kernels.budget_adc, kernels.budget_adc_grouped):
+        out = fn(luts, codes_t, rowterm, tiles, block_t=128)
+        torch.cuda.synchronize()
+        assert torch.isinf(out[0, :128]).all()
+        assert torch.isinf(out[1, 128:256]).all()
+    q, vecs, rownorm, t2 = _exact_case(8, 3, 128)
+    t2[0, 0] = -5
+    for fn in (kernels.budget_exact, kernels.budget_exact_grouped):
+        out = fn(q, vecs, rownorm, t2, block_t=128)
+        torch.cuda.synchronize()
+        assert torch.isinf(out[0, :128]).all()
+
+
+def test_budget_wrappers_raise_on_bad_input():
+    luts, codes_t, rowterm, tiles = _budget_case(9, 2, 12, 256, torch.uint8,
+                                                 128)
+    with pytest.raises(ValueError):
+        kernels.budget_adc(luts, codes_t.to(torch.int32), rowterm, tiles,
+                           block_t=128)
+    with pytest.raises(ValueError):
+        kernels.budget_adc(luts, codes_t, rowterm, tiles, block_t=100)
+    with pytest.raises(ValueError, match="mixed devices"):
+        kernels.budget_adc_grouped(luts, codes_t, rowterm.cpu(), tiles,
+                                   block_t=128)
+    q, vecs, rownorm, t2 = _exact_case(10, 2, 128)
+    with pytest.raises(ValueError):
+        kernels.budget_exact(q, vecs.float(), rownorm, t2, block_t=128)
+    with pytest.raises(ValueError):
+        kernels.budget_exact_grouped(q, vecs, rownorm, t2, block_t=128,
+                                     rows=33)
+    with pytest.raises(NotImplementedError, match="K8"):
+        kernels.budget_adc_auto(luts, codes_t, rowterm, tiles, block_t=128,
+                                lut_dtype="int8")
+
+
+def test_probe_engine_on_cuda_matches_cpu(tmp_path, monkeypatch):
+    """Slice 2 on the card: an IVFADC + IVPQ engine saved on the CPU and
+    loaded onto the card answers like the CPU engine (plain versions) in
+    the IVFADC batch family and the join's three methods, and each path
+    launches its budget kernels."""
+    import functools
+    from postgres_word2vec_tpu_torch import Freddy, VectorStore
+
+    rng = np.random.default_rng(1)
+    c = rng.normal(size=(64, 48))
+    v = (c[rng.integers(0, 64, 20000)]
+         + 0.6 * rng.normal(size=(20000, 48))).astype(np.float32)
+    store = VectorStore.from_arrays([f"w{i}" for i in range(len(v))], v)
+    cpu = Freddy.build(store, with_pq=False, ivfadc_m=12, ivfadc_k=64,
+                       k_coarse=64, ivpq_m=12, ivpq_k=16, ivpq_k_coarse=64,
+                       ivpq_coarse_positions=1, train_size=None, iters=4)
+    cpu.save(tmp_path)
+    gpu = Freddy.load(tmp_path, device="cuda")
+    assert gpu.ivfadc.codes_sorted.is_cuda and gpu.ivpq.codes.is_cuda
+    words = [f"w{i}" for i in range(0, 512, 2)]
+    kernels.reset_launch_counts()
+    got = gpu.knn_batch(words, 10)
+    launched = kernels.launch_counts()
+    assert launched["budget_adc"] + launched["budget_adc_grouped"] > 0
+    _same_rows(got, cpu.knn_batch(words, 10))
+    targets = list(range(0, 20000, 3))
+    for method, kernel in ((0, "budget_adc_grouped"), (1,
+                           "budget_exact_grouped"), (2, "budget_adc_grouped")):
+        for eng in (cpu, gpu):
+            eng.set_alpha(50)
+            eng.set_method_flag(method)
+        before = kernels.launch_counts()[kernel]
+        got = gpu.knn_in_ivpq_batch(words, 5, targets)
+        assert kernels.launch_counts()[kernel] > before, (method, kernel)
+        with monkeypatch.context() as mp:
+            if method == 1:
+                # the card scores method 1 on the budget tiles' bf16 rows;
+                # the CPU's default dense round reads float32 rows, so hold
+                # the card to the CPU's budget round on the same rows
+                mp.setattr(cpu.ivpq, "search_join", functools.partial(
+                    type(cpu.ivpq).search_join, cpu.ivpq, impl="budget"))
+            want = cpu.knn_in_ivpq_batch(words, 5, targets)
+        _same_rows(got, want, hit_floor=0.95, atol=1e-4)
+    gpu.set_method_flag(1)
+    before = kernels.launch_counts()["budget_exact"]
+    assert gpu.knn_in_ivpq("w3", 5, targets)[0][0] == "w3"
+    assert kernels.launch_counts()["budget_exact"] > before
+
+
+def _same_rows(got, want, hit_floor=0.99, atol=1e-4):
+    """Batch/join rows of the card and the CPU: the same words (up to the
+    card's other summation order) and similarities within ``atol``."""
+    assert len(got) == len(want)
+    sims = {(q, w): s for q, w, s in want}
+    hits = [(q, w) in sims for q, w, _ in got]
+    assert sum(hits) / len(got) >= hit_floor
+    for (q, w, s), hit in zip(got, hits):
+        if hit:
+            assert abs(s - sims[(q, w)]) <= atol

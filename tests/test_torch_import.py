@@ -21,7 +21,8 @@ def test_the_port_has_the_slice_modules():
     mods = set(_port_modules())
     for name in ("store", "api", "ops.vector_ops", "ops.topk", "ops.kmeans",
                  "ops.lut", "ops.adc", "ops.kernels", "ops._build",
-                 "models.exact", "models.pq", "utils.shapes",
+                 "models.exact", "models.pq", "models.ivfadc",
+                 "models.ivpq", "utils.shapes",
                  "utils.tracker", "utils.convert", "evaluation.synth"):
         assert f"postgres_word2vec_tpu_torch.{name}" in mods, name
 
@@ -54,5 +55,7 @@ def test_the_build_is_keyed_by_the_sources():
     assert path.name.startswith("libpw2v_kernels_") and path.suffix == ".so"
     assert {p.name for p in _build._sources()} >= {
         "adc_scan.cu", "adc_scan_binned.cu", "fused_exact_scan.cu",
-        "adc_common.cuh"}
+        "adc_common.cuh", "budget_adc.cu", "budget_adc_grouped.cu",
+        "budget_exact.cu", "budget_exact_grouped.cu", "budget_common.cuh",
+        "bf16.cuh"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

@@ -10,7 +10,13 @@ Tolerances:
   argmin packed into the min's low mantissa bits; ids are checked by the
   contract (own bin, points at a row scoring the bin min), not bit for bit;
 - fused exact: atol 1e-4 (bf16 operands on both sides, float32 sums in
-  another order), same id contract.
+  another order), same id contract;
+- budget ADC (K6/K7): the dense bound ``m·max(lut)·2⁻⁸`` — the Pallas
+  kernels cast LUTs to bf16, the port's keep float32 — with the same +inf
+  entries;
+- budget exact (K9/K10): ``2⁻⁷·max‖q‖·max‖v‖`` — the Pallas kernels round
+  the queries to bf16 (relative 2⁻⁹ per value, at most 2⁻⁸·Σ|q||v| on the
+  dot product, doubled in ``norm − 2·q·v``), the port keeps them float32.
 """
 
 import numpy as np
@@ -182,3 +188,136 @@ def test_fused_exact_top_k_matches_jax(rng):
                                 interpret=True)
     assert_same_top_k(*got, *want, atol=1e-4)
     assert (np_(got[1])[:, 0] == np.arange(4)).all()
+
+
+# ------------------------------------------------ K6/K7/K9/K10 budget probes
+
+def _budget_case(rng, B=12, m=6, k=32, block_t=128, nt=5, P=4, d=30):
+    """The JAX package's test layout (tests/test_pallas.py): tile ids with
+    an inf-tile slot and a query that probes one tile in every slot."""
+    cb = rng.normal(size=(m, k, d // m)).astype(np.float32)
+    q = rng.normal(size=(B, d)).astype(np.float32)
+    na = (nt + 1) * block_t
+    codes = rng.integers(0, k, size=(na, m)).astype(np.uint8)
+    rowterm = rng.normal(size=(na,)).astype(np.float32)
+    rowterm[2 * block_t + 100:3 * block_t] = np.inf
+    rowterm[nt * block_t:] = np.inf
+    luts = np_(jlut.build_luts(to_jax(q), to_jax(cb)))
+    tiles = rng.integers(0, nt, size=(B, P)).astype(np.int32)
+    tiles[3, 2] = nt
+    tiles[7, :] = 0
+    return q, luts, codes, rowterm, tiles, block_t
+
+
+def _close_with_inf(got, want, atol):
+    got, want = np_(got), np.asarray(want)
+    fin = np.isfinite(want)
+    np.testing.assert_array_equal(np.isfinite(got), fin)
+    assert np.abs(got[fin] - want[fin]).max() <= atol
+
+
+@pytest.mark.parametrize("rows", [8, 32])
+def test_group_probe_layout_matches_jax(rng, rows):
+    B, P, nt = 40, 6, 4
+    tiles = rng.integers(0, nt + 1, size=(B, P)).astype(np.int32)
+    groups = -(-B * P // rows) + nt + 1
+    got = kernels._group_probe_layout(to_torch(tiles), B, P, groups, nt, rows)
+    want = pk._group_probe_layout(to_jax(tiles), B, P, groups, nt, rows)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(np_(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("rows", [1, 8, 32])
+def test_grouped_layout_reassembles_the_contract(rng, rows):
+    """The grouped kernels' glue: every (query, slot) pair lands in a
+    group of its own tile, in a slot naming its query, and the reassembly
+    gather of those grouped rows gives back the (B, P·block_t) contract."""
+    _, luts, codes, rowterm, tiles, bt = _budget_case(rng, B=40, P=6)
+    t = to_torch(tiles)
+    want = kernels.budget_adc_plain(to_torch(luts),
+                                    to_torch(codes.T).contiguous(),
+                                    to_torch(rowterm), t, block_t=bt)
+    B, P = tiles.shape
+    qidx, tog, row = kernels._grouped_layout(t, codes.shape[0] // bt, rows)
+    assert tog.shape[0] == -(-B * P // rows) + codes.shape[0] // bt
+    np.testing.assert_array_equal(np_(tog[row // rows]), tiles.reshape(-1))
+    np.testing.assert_array_equal(np_(qidx.reshape(-1)[row]),
+                                  np.arange(B * P) // P)
+    grouped = torch.full((qidx.numel(), bt), float("nan"))
+    grouped[row] = want.reshape(B * P, bt)
+    assert torch.equal(kernels._reassemble(grouped, row, t), want)
+
+
+def test_plain_budget_adc_matches_pallas_interpret(rng):
+    _, luts, codes, rowterm, tiles, bt = _budget_case(rng)
+    args = (to_torch(luts), to_torch(codes.T).contiguous(),
+            to_torch(rowterm), to_torch(tiles))
+    jargs = (to_jax(luts), to_jax(codes.T), to_jax(rowterm), to_jax(tiles))
+    bound = 6 * luts.max() * 2.0 ** -8
+    got = kernels.budget_adc_plain(*args, block_t=bt)
+    _close_with_inf(got, pk.budget_adc_pallas(*jargs, block_t=bt,
+                                              interpret=True), bound)
+    # the grouped TPU kernel has the same contract, so the same plain twin
+    _close_with_inf(kernels.budget_adc_grouped(*args, block_t=bt, rows=8),
+                    pk.budget_adc_grouped_pallas(*jargs, block_t=bt,
+                                                 interpret=True), bound)
+
+
+def test_plain_budget_exact_matches_pallas_interpret(rng):
+    q, _, _, rownorm, tiles, bt = _budget_case(rng)
+    na = rownorm.shape[0]
+    vecs = rng.normal(size=(na, 30)).astype(np.float32)
+    vecs[~np.isfinite(rownorm)] = 0.0
+    rownorm = np.where(np.isfinite(rownorm), (vecs * vecs).sum(1), np.inf)
+    table = torch.zeros(na, 32, dtype=torch.bfloat16)
+    table[:, :30] = to_torch(vecs).to(torch.bfloat16)
+    jvecs_t = to_jax(np_(table.float())[:, :30].T)
+    bound = (2.0 ** -7 * np.linalg.norm(q, axis=1).max()
+             * np.linalg.norm(vecs, axis=1).max())
+    got = kernels.budget_exact_plain(to_torch(q), table, to_torch(rownorm),
+                                     to_torch(tiles), block_t=bt)
+    _close_with_inf(got, pk.budget_exact_pallas(
+        to_jax(q), jvecs_t, to_jax(rownorm), to_jax(tiles), block_t=bt,
+        interpret=True), bound)
+    grouped = kernels.budget_exact_grouped(
+        to_torch(q), table, to_torch(rownorm), to_torch(tiles), block_t=bt,
+        rows=8)
+    _close_with_inf(grouped, pk.budget_exact_grouped_pallas(
+        to_jax(q), jvecs_t, to_jax(rownorm), to_jax(tiles), block_t=bt,
+        interpret=True), bound)
+
+
+def test_budget_dispatch_rule_is_the_jax_rule(rng):
+    assert kernels.GROUPED_ROWS_DEFAULT == pk.GROUPED_ROWS_DEFAULT
+    for bp, n_tiles, rows, slot in ((8192, 1416, 32, 1920),
+                                    (15360, 4000, 32, 6144),
+                                    (16384, 13025, 32, 1920),
+                                    (16, 1416, 32, 600), (512, 6, 8, 64)):
+        assert (kernels._grouped_wins(bp, n_tiles, rows, slot)
+                == pk._grouped_wins(bp, n_tiles, rows, slot))
+    # the join regime runs grouped, a sparse probe per query (JAX's test)
+    _, luts, codes, rowterm, tiles, bt = _budget_case(rng, B=64, P=8)
+    args = (to_torch(luts), to_torch(codes.T).contiguous(),
+            to_torch(rowterm), to_torch(tiles))
+    _close_with_inf(kernels.budget_adc_auto(*args, block_t=bt),
+                    kernels.budget_adc_plain(*args, block_t=bt), 0.0)
+    with pytest.raises(ValueError, match="lut_dtype"):
+        kernels.budget_adc_auto(*args, block_t=bt, lut_dtype="fp8")
+
+
+def test_budget_wrappers_take_the_plain_path_on_cpu(rng):
+    q, luts, codes, rowterm, tiles, bt = _budget_case(rng)
+    args = (to_torch(luts), to_torch(codes.T).contiguous(),
+            to_torch(rowterm), to_torch(tiles))
+    kernels.reset_launch_counts()
+    assert torch.equal(kernels.budget_adc(*args, block_t=bt),
+                       kernels.budget_adc_plain(*args, block_t=bt))
+    assert torch.equal(kernels.budget_adc_grouped(*args, block_t=bt),
+                       kernels.budget_adc_plain(*args, block_t=bt))
+    table = torch.zeros(rowterm.shape[0], 32, dtype=torch.bfloat16)
+    eargs = (to_torch(q), table, to_torch(rowterm), to_torch(tiles))
+    assert torch.equal(kernels.budget_exact(*eargs, block_t=bt),
+                       kernels.budget_exact_plain(*eargs, block_t=bt))
+    assert torch.equal(kernels.budget_exact_grouped(*eargs, block_t=bt),
+                       kernels.budget_exact_plain(*eargs, block_t=bt))
+    assert kernels.launch_counts() == {k: 0 for k in kernels.KERNELS}

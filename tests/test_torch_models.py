@@ -1,7 +1,10 @@
 """The port's exact and PQ models and its engine against the JAX package
-(CPU). The slice as a whole: a JAX engine built and saved here loads in
-the port, and its three kNN families return the same words (up to ties)
-with similarities within 1e-5."""
+(CPU). Each slice as a whole: a JAX engine built and saved here loads in
+the port; its exact, PQ and PQ-PV kNN families return the same words (up
+to ties) with similarities within 1e-5, and its IVFADC families, batch
+façade and IVPQ joins (methods 0, 1, 2, prepared targets, statistics)
+within 1e-4 (the IVFADC decomposition and the join's ADC add float32
+terms in another order)."""
 
 import numpy as np
 import pytest
@@ -193,22 +196,22 @@ def test_jax_engine_loads_in_the_port(saved_jax_engine, family):
         eng.set_knn_function("k_nearest_neighbour")
 
 
-def _same_knn(eng, port):
+def _same_knn(eng, port, atol=1e-5):
     for word in ("w0", "w17", "w999", "w4095"):
         want = eng.knn(word, 10)
         got = port.knn(word, 10)
         assert len(got) == len(want) == 10
         sw = np.array([s for _, s in want], np.float32)
         sg = np.array([s for _, s in got], np.float32)
-        np.testing.assert_allclose(sg, sw, atol=1e-5, rtol=0)
+        np.testing.assert_allclose(sg, sw, atol=atol, rtol=0)
         ids_w = np.array([eng.store.get_id(w) for w, _ in want])[None]
         ids_g = np.array([port.store.get_id(w) for w, _ in got])[None]
-        assert_same_top_k(-sg[None], ids_g, -sw[None], ids_w, atol=1e-5)
+        assert_same_top_k(-sg[None], ids_g, -sw[None], ids_w, atol=atol)
     # the batched façade of the same family agrees too
     q = port.store.vectors_for(["w3", "w4"])
     d, i = port.knn_matrix(q, 5)
     dj, ij = eng.knn_matrix(to_jax(np_(q)), 5)
-    assert_same_top_k(d, i, dj, ij, atol=1e-5)
+    assert_same_top_k(d, i, dj, ij, atol=atol)
 
 
 def test_knn_batch_exact_matches_jax(saved_jax_engine):
@@ -274,20 +277,24 @@ def test_every_jax_engine_method_exists_or_raises(saved_jax_engine):
             getattr(port, name)()
 
 
-def test_unported_families_raise(saved_jax_engine, tmp_path):
-    eng, path = saved_jax_engine
+def test_unported_families_raise(saved_jax_engine):
+    """What slice 2 left out raises and names its ROADMAP item: the mesh,
+    anisotropic refinement, and the IVFADC / IVPQ insert paths."""
+    _, path = saved_jax_engine
     store = Freddy.load(path).store
-    with pytest.raises(NotImplementedError, match="IVFADC"):
-        Freddy.build(store)                      # default asks for all three
-    with pytest.raises(NotImplementedError, match="IVPQ"):
-        Freddy.build(store, with_ivfadc=False)
-    with pytest.raises(NotImplementedError):
-        Freddy.build(store, with_ivfadc=False, with_ivpq=False, k_coarse=8)
-    d = tmp_path / "with_ivfadc"
-    eng.save(d)
-    (d / "ivfadc.npz").write_bytes((path / "pq.npz").read_bytes())
-    with pytest.raises(NotImplementedError, match="ivfadc"):
-        Freddy.load(d)
+    with pytest.raises(NotImplementedError, match="sharding"):
+        Freddy.build(store, mesh=object())
+    with pytest.raises(NotImplementedError, match="anisotropic"):
+        Freddy.build(store, with_ivfadc=False, with_ivpq=False,
+                     aniso_eta=2.0)
+    eng = Freddy.build(store, with_pq=False, ivfadc_m=12, ivfadc_k=16,
+                       k_coarse=8, ivpq_m=12, ivpq_k=16, ivpq_k_coarse=4,
+                       train_size=None, iters=2)
+    v = store.vectors_norm[:4]
+    for call in (lambda: eng.ivfadc.add(v), eng.ivfadc.flush,
+                 lambda: eng.ivpq.add(v)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*insert"):
+            call()
 
 
 def test_int8_luts_raise_on_a_cuda_engine(saved_jax_engine, monkeypatch):
@@ -297,5 +304,144 @@ def test_int8_luts_raise_on_a_cuda_engine(saved_jax_engine, monkeypatch):
     port.set_pq_lut_dtype("bf16")
     monkeypatch.setattr(VectorStore, "device",
                         property(lambda self: torch.device("cuda")))
-    with pytest.raises(NotImplementedError, match="K3"):
+    with pytest.raises(NotImplementedError, match="K3, K5 and K8"):
         port.set_pq_lut_dtype("int8")
+
+
+# ------------------------------------------------- slice 2: the probe path
+
+@pytest.fixture(scope="module")
+def saved_probe_engine(tmp_path_factory):
+    """A JAX engine with IVFADC (24 cells) and IVPQ (2 × 8 coarse
+    centroids) and an active statistics table, built on CPU and saved."""
+    rng = np.random.default_rng(6)
+    words = [f"w{i}" for i in range(N)]
+    store = JStore.from_arrays(words, _clustered(rng))
+    eng = JFreddy.build(store, seed=0, with_pq=False, ivfadc_m=12,
+                        ivfadc_k=16, k_coarse=24, ivpq_m=12, ivpq_k=16,
+                        ivpq_k_coarse=8, train_size=None, iters=4)
+    eng.create_statistics("dom", words[:2000])
+    path = tmp_path_factory.mktemp("probe_engine")
+    eng.save(path)
+    return eng, path
+
+
+def _rows_as_top_k(rows, store, names, k):
+    """``(query, word, sim)`` rows → (−sim, id) matrices, padded."""
+    sims = {n: [] for n in names}
+    ids = {n: [] for n in names}
+    for q, w, s in rows:
+        sims[q].append(-s)
+        ids[q].append(store.get_id(w))
+    d = np.array([(sims[n] + [np.inf] * k)[:k] for n in names], np.float32)
+    i = np.array([(ids[n] + [-1] * k)[:k] for n in names])
+    return d, i
+
+
+def _same_join(got, want, port, eng, names, k, atol=1e-4):
+    assert len(got) == len(want)
+    assert_same_top_k(*_rows_as_top_k(got, port.store, names, k),
+                      *_rows_as_top_k(want, eng.store, names, k), atol=atol)
+
+
+def test_probe_engine_loads_in_the_port(saved_probe_engine):
+    eng, path = saved_probe_engine
+    port = Freddy.load(path)
+    assert port.pq is None and port.ivfadc.num_cells == 24
+    assert port.ivpq.num_cells == 64 and port.params.statistics_table == "dom"
+    np.testing.assert_allclose(np_(port.statistics["dom"]),
+                               np.asarray(eng.statistics["dom"]), rtol=1e-6)
+    assert port.dispatch == eng.dispatch
+
+
+@pytest.mark.parametrize("family", ["k_nearest_neighbour_ivfadc",
+                                    "k_nearest_neighbour_ivfadc_pv"])
+def test_ivfadc_families_match_jax(saved_probe_engine, family):
+    eng, path = saved_probe_engine
+    port = Freddy.load(path)
+    for e in (eng, port):
+        e.set_knn_function(family)
+        e.set_w(2)
+        e.set_pvf(5)
+    try:
+        _same_knn(eng, port, atol=1e-4)
+    finally:
+        eng.set_knn_function("k_nearest_neighbour")
+        eng.set_w(3)
+        eng.set_pvf(20)
+
+
+def test_knn_batch_matches_jax(saved_probe_engine):
+    eng, path = saved_probe_engine
+    port = Freddy.load(path)
+    words = [f"w{i}" for i in range(0, 400, 37)]
+    assert port.dispatch["knn_batch"] == "k_nearest_neighbour_ivfadc_batch"
+    _same_join(port.knn_batch(words, 6), eng.knn_batch(words, 6), port, eng,
+               words, 6)
+
+
+@pytest.mark.parametrize("method", [0, 1, 2])
+def test_join_facades_match_jax(saved_probe_engine, method):
+    """``knn_in_ivpq_batch`` on a named prepared target set with the
+    active statistics, through the generic ``knn_join`` façade, and the
+    single-query ``knn_in_ivpq``."""
+    eng, path = saved_probe_engine
+    port = Freddy.load(path)
+    words = [f"w{i}" for i in range(1, 300, 23)]
+    targets = [f"w{i}" for i in range(0, N, 3)]
+    for e in (eng, port):
+        e.prepare_targets(targets, name="t")
+        e.set_alpha(20)
+        e.set_method_flag(method)
+        e.set_pvf(4)
+        e.set_knn_join_function("knn_in_ivpq_batch")
+    try:
+        _same_join(port.knn_join(words, 5, "t"), eng.knn_join(words, 5, "t"),
+                   port, eng, words, 5)
+        _same_join(port.knn_in_ivpq_batch(words, 5, targets),
+                   eng.knn_in_ivpq_batch(words, 5, targets), port, eng,
+                   words, 5)
+        got = port.knn_in_ivpq("w3", 5, "t")
+        want = eng.knn_in_ivpq("w3", 5, "t")
+        assert [w for w, _ in got][:1] == [w for w, _ in want][:1] == ["w3"]
+        results = port.tracker.get_results()
+        assert results["retrieved"] and results["computation_time"]
+    finally:
+        eng.set_knn_join_function("knn_search_in_batch")
+        eng.set_method_flag(0)
+        eng.set_alpha(3)
+        eng.set_pvf(20)
+
+
+def test_exact_join_matches_jax(saved_probe_engine):
+    eng, path = saved_probe_engine
+    port = Freddy.load(path)
+    words = ["w5", "w6", "w700"]
+    targets = list(range(0, N, 5))
+    assert port.dispatch["knn_join"] == "knn_search_in_batch"
+    _same_join(port.knn_join(words, 4, targets),
+               eng.knn_join(words, 4, targets), port, eng, words, 4,
+               atol=1e-5)
+
+
+def test_probe_engine_save_load_round_trip(saved_probe_engine, tmp_path):
+    _, path = saved_probe_engine
+    port = Freddy.load(path)
+    port.set_alpha(9)
+    port.set_confidence_value(0.6)
+    port.set_long_codes_threshold(123.0)
+    port.set_use_targetlist(False)
+    port.create_statistics("small", ["w1", "w2", "nope"])
+    port.save(tmp_path / "e")
+    back = Freddy.load(tmp_path / "e")
+    assert (back.params.alpha, back.params.confidence,
+            back.params.long_codes_threshold, back.params.use_targetlist) == (
+                9, 0.6, 123.0, False)
+    assert back.params.statistics_table == "small"
+    assert set(back.statistics) == {"dom", "small"}
+    assert torch.equal(back.ivfadc.codes_sorted, port.ivfadc.codes_sorted)
+    jeng = JFreddy.load(tmp_path / "e")          # the JAX engine reads it
+    np.testing.assert_array_equal(np.asarray(jeng.ivpq.codes),
+                                  np_(port.ivpq.codes))
+    with pytest.raises(KeyError):
+        back.set_statistics_table("missing")

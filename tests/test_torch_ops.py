@@ -333,3 +333,158 @@ def test_generate_wordlike_geometry_matches_jax():
                                               n_topics=64))
     for a, b in zip(_nn_profile(port), _nn_profile(ref)):
         assert abs(a - b) < 0.05, (a, b)
+
+
+# ------------------------------------------- slice 2: probe-path ops
+
+def test_pairwise_sqdist_matches_jax(rng):
+    x = rng.normal(size=(40, 48)).astype(np.float32)
+    c = rng.normal(size=(9, 48)).astype(np.float32)
+    np.testing.assert_allclose(
+        np_(kmeans.pairwise_sqdist(to_torch(x), to_torch(c))),
+        np.asarray(jkmeans.pairwise_sqdist(to_jax(x), to_jax(c))),
+        atol=1e-4)
+
+
+def test_flat_kmeans_lloyd_matches_jax(rng):
+    """One repaired Lloyd step from the same start gives the same flat
+    centroids and counts; restarts keep the lowest distortion."""
+    x = rng.normal(size=(800, 16)).astype(np.float32)
+    c0 = x[:12].copy()
+    c0[3] = 50.0                                 # an empty cluster to repair
+    got = kmeans._lloyd_step_repair(to_torch(x), to_torch(c0))
+    want = jkmeans._lloyd_step_repair(to_jax(x), to_jax(c0))
+    np.testing.assert_allclose(np_(got[0]), np.asarray(want[0]), atol=1e-5)
+    np.testing.assert_array_equal(np_(got[1]), np.asarray(want[1]))
+    np.testing.assert_allclose(float(got[2]), float(want[2]), rtol=1e-5)
+    one = kmeans.kmeans(torch.Generator().manual_seed(3), to_torch(x), 12, 4)
+    best = kmeans.kmeans(torch.Generator().manual_seed(3), to_torch(x), 12, 4,
+                         restarts=3, init="kmeans++")
+    assert one.centroids.shape == (12, 16) and int(one.counts.sum()) == 800
+    assert float(best.distortion) <= float(kmeans.kmeans(
+        torch.Generator().manual_seed(3), to_torch(x), 12, 4,
+        init="kmeans++").distortion)
+
+
+def test_encode_residual_subspaces_matches_jax(rng):
+    x = rng.normal(size=(500, 48)).astype(np.float32)
+    coarse = rng.normal(size=(7, 48)).astype(np.float32)
+    assign = rng.integers(0, 7, 500).astype(np.int32)
+    cb = rng.normal(size=(12, 16, 4)).astype(np.float32)
+    got = kmeans.encode_residual_subspaces(to_torch(x), to_torch(coarse),
+                                           to_torch(assign), to_torch(cb),
+                                           chunk_size=128)
+    want = jkmeans.encode_residual_subspaces(to_jax(x), to_jax(coarse),
+                                             to_jax(assign), to_jax(cb))
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(np_(got), np.asarray(want))
+
+
+def test_double_luts_and_fused_codes_match_jax(rng):
+    luts = rng.random(size=(3, 30, 32)).astype(np.float32)
+    codes = rng.integers(0, 32, size=(50, 30)).astype(np.uint8)
+    np.testing.assert_allclose(
+        np_(lut.build_double_luts(to_torch(luts))),
+        np.asarray(jlut.build_double_luts(to_jax(luts))), rtol=1e-6)
+    fused = lut.fuse_codes(to_torch(codes), 32)
+    assert fused.dtype == torch.int16               # pair codes reach 1023
+    np.testing.assert_array_equal(np_(fused),
+                                  np.asarray(jlut.fuse_codes(to_jax(codes),
+                                                             32)))
+    assert lut.fuse_codes(to_torch(codes), 256).dtype == torch.int32
+    with pytest.raises(ValueError, match="even m"):
+        lut.build_double_luts(to_torch(luts[:, :3]))
+
+
+def test_adc_distances_per_query_matches_jax(rng):
+    luts = rng.random(size=(4, 12, 16)).astype(np.float32)
+    codes = rng.integers(0, 16, size=(4, 70, 12)).astype(np.uint8)
+    np.testing.assert_allclose(
+        np_(adc.adc_distances_per_query(to_torch(luts), to_torch(codes))),
+        np.asarray(jadc.adc_distances_per_query(to_jax(luts),
+                                                to_jax(codes))), atol=1e-5)
+
+
+def _budget_table(rng, m=6, k=16, block_t=32, nt=5):
+    na = (nt + 1) * block_t
+    codes = rng.integers(0, k, size=(na, m)).astype(np.uint8)
+    rowterm = rng.normal(size=na).astype(np.float32)
+    rowterm[2 * block_t + 20:3 * block_t] = np.inf  # pad rows
+    rowterm[nt * block_t:] = np.inf                 # the inf tile
+    tiles = rng.integers(0, nt + 1, size=(7, 4)).astype(np.int32)
+    return codes, rowterm, tiles
+
+
+def _same_with_inf(got, want, atol):
+    got, want = np_(got), np.asarray(want)
+    fin = np.isfinite(want)
+    np.testing.assert_array_equal(np.isfinite(got), fin)
+    np.testing.assert_allclose(got[fin], want[fin], atol=atol)
+
+
+def test_budget_adc_xla_matches_jax(rng):
+    codes, rowterm, tiles = _budget_table(rng)
+    luts = rng.random(size=(7, 6, 16)).astype(np.float32)
+    got = adc.budget_adc_xla(to_torch(luts), to_torch(codes),
+                             to_torch(rowterm), to_torch(tiles), block_t=32)
+    want = jadc.budget_adc_xla(to_jax(luts), to_jax(codes), to_jax(rowterm),
+                               to_jax(tiles), block_t=32)
+    _same_with_inf(got, want, 1e-5)
+    # the transposed code table the kernels read gives the same sums
+    t_view = adc.budget_adc_xla(to_torch(luts), to_torch(codes.T).t(),
+                                to_torch(rowterm), to_torch(tiles),
+                                block_t=32)
+    assert torch.equal(torch.isfinite(t_view), torch.isfinite(got))
+
+
+def test_budget_exact_xla_matches_jax(rng):
+    _, rownorm, tiles = _budget_table(rng)
+    vecs = rng.normal(size=(rownorm.shape[0], 24)).astype(np.float32)
+    q = rng.normal(size=(7, 24)).astype(np.float32)
+    got = adc.budget_exact_xla(to_torch(q), to_torch(vecs), to_torch(rownorm),
+                               to_torch(tiles), block_t=32)
+    want = jadc.budget_exact_xla(to_jax(q), to_jax(vecs), to_jax(rownorm),
+                                 to_jax(tiles), block_t=32)
+    _same_with_inf(got, want, 1e-4)
+
+
+def test_adc_top_k_in_matches_jax(rng):
+    cb, q, codes = _codebook_case(rng, B=4, k=16, n=600)
+    luts = np_(lut.build_luts(to_torch(q), to_torch(cb)))
+    tids = rng.choice(600, size=40, replace=False).astype(np.int32)
+    mask = np.ones(40, bool)
+    mask[[3, 9]] = False
+    for k in (5, 45):                                # k beyond the set pads
+        got = adc.adc_top_k_in(to_torch(luts), to_torch(codes),
+                               to_torch(tids), to_torch(mask), k)
+        want = jadc.adc_top_k_in(to_jax(luts), to_jax(codes), to_jax(tids),
+                                 to_jax(mask), k)
+        assert_same_top_k(*got, *want, atol=1e-5)
+    assert (np_(got[1])[:, 38:] == -1).all()
+
+
+def test_no_tf32_restores_the_callers_flag(rng):
+    """The float32 paths switch TF32 off only while they run: a caller's
+    own setting survives every call (the join runs post_verify per
+    round)."""
+    from postgres_word2vec_tpu_torch.ops import kernels
+
+    v = to_torch(rng.normal(size=(300, 48)).astype(np.float32))
+    q, ids = v[:3], torch.tensor([[0, 5, 9]] * 3)
+    table, norms, _ = kernels.tile_table(v, block_n=256)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for flag in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            adc.post_verify(q, ids, torch.zeros(3, 3), v, 2)
+            kernels.fused_exact_scan_plain(
+                kernels.pad_queries(q, table.shape[1]), table, norms,
+                block_n=256)
+            lut.build_luts(q, torch.zeros(12, 4, 4))
+            kmeans.pairwise_sqdist(q, v[:5])
+            assert torch.backends.cuda.matmul.allow_tf32 is flag
+            with vo.no_tf32():
+                assert torch.backends.cuda.matmul.allow_tf32 is False
+            assert torch.backends.cuda.matmul.allow_tf32 is flag
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
