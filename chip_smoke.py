@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-Drives the port's two ported paths at the bench scale (N = 3,072,000 ×
+Drives the port's three ported paths at the bench scale (N = 3,072,000 ×
 d = 300, bench.py's data size and BUILD settings) through the entry points
 a user calls, and holds every hand-written kernel to its plain version:
 
@@ -19,13 +19,25 @@ a user calls, and holds every hand-written kernel to its plain version:
      kNN-join at 100,000 prepared targets with statistics (alpha 200,
      methods 0, 2 and 1) and over the whole store (alpha 600, method 2),
      and single-query ``knn_in_ivpq`` (methods 0 and 1);
+   - slice 3, the int8 configuration: ``set_pq_lut_dtype("int8")``, then
+     PQ and PQ + post-verify kNN, the join at 100,000 targets (methods 0
+     and 2) and over the whole store (which keeps the float per-query
+     kernel, with the JAX package's warning), and the int8 exact index;
    with recall against the float32 exact scan over the same targets;
 5. times: p50 per query from CUDA events, kernel and plain version side
    by side, and each kernel alone against its plain version;
 6. only with ``--profile OUT.json``: a ``torch.profiler`` window of 3
    calls per path, written to OUT.json — host wall and device time per
    call, the device's busy share, the top device kernels, and each
-   hand-written kernel's device time per launch without its torch glue.
+   hand-written kernel's device time per launch without its torch glue;
+7. last, so that the numbers above are unchanged, slice 3's online
+   insert: ``insert_batch`` of 10,240 new two-word terms in 4 batches of
+   2,560 (the fourth crosses the IVFADC tail's 8,192 rows, so the tail is
+   spliced into the lists on the card), a standalone int8 exact index
+   extended with each batch and held to a fresh build, every inserted
+   term its own exact top-1, PQ-PV and IVFADC-PV self-recall before and
+   after the splice, and the int8 kernels and K6 launched on the grown
+   tables.
 
 Usage: ``python3 chip_smoke.py [--profile OUT.json]`` from the repository
 root, on a machine with one CUDA GPU. It fails (non-zero exit, no result
@@ -44,6 +56,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 N, D = 3_072_000, 300
 K = 10
@@ -60,13 +73,27 @@ SEED = 0
 # IVFADC+PV20@5 0.936, join a200@5 0.878, join a600 over 3M @5 0.823).
 FLOORS = {"pq@5": 0.45, "pq_pv@5": 0.85, "fused@10": 0.95,
           "ivfadc@5": 0.40, "ivfadc_pv20@5": 0.80, "join_m2_a200@5": 0.75,
-          "join_m1_a200@5": 0.75, "join_3M_m2_a600@5": 0.70}
+          "join_m1_a200@5": 0.75, "join_3M_m2_a600@5": 0.70,
+          # slice 3 (the JAX r05 exact_int8 column is 0.985)
+          "pq_int8_pv20@5": 0.85, "exact_int8@10": 0.95}
+# int8 recall no more than this below the same run's float-LUT recall
+INT8_DROP = {"pq_int8@5": "pq@5", "join_int8_m2_a200@5": "join_m2_a200@5"}
+INT8_MAX_DROP = 0.02
 # K6/K7 sum subspaces in the plain version's order (bit-equal in
-# practice); K9/K10 sum 304 float32 products in another order.
+# practice); K9/K10 sum 304 float32 products in another order; K3/K5 sum
+# exactly in int32 and round the one rescale as the plain version does;
+# K8 also rounds its row-term add on its own (__fmul_rn, then __fadd_rn).
 TOL = {"adc_scan": 1e-4, "adc_scan_binned": 1e-5, "fused_exact_scan": 1e-3,
        "budget_adc": 1e-5, "budget_adc_grouped": 1e-5, "budget_exact": 1e-4,
-       "budget_exact_grouped": 1e-4}
+       "budget_exact_grouped": 1e-4, "adc_scan_int8": 0.0,
+       "adc_scan_binned_int8": 0.0, "budget_adc_grouped_int8": 1e-5}
 BUDGET_BOOKS = ((12, 256, "uint8"), (30, 32, "uint8"), (15, 1024, "int16"))
+# K3/K5's boundary codebooks: slice 1's, the budget ones and 4-bit 12×16
+I8_BOOKS = ((60, 16, "uint8"), (12, 1024, "int16"), (12, 16, "uint8"),
+            *BUDGET_BOOKS)
+# the insert phase: new two-word terms, in batches
+INSERT_TERMS, INSERT_BATCH = 10_240, 2_560
+INSERT_FLOORS = {"pq_pv20_self@5": 0.9, "ivfadc_pv20_self@5": 0.8}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -134,9 +161,26 @@ def plain_kernels(kernels):
     def ungrouped(plain):
         return lambda *args, rows=None, **kw: plain(*args, **kw)
 
-    swap = {"adc_scan": kernels.adc_scan_plain,
+    def int8_luts(plain):
+        """``plain`` over float LUTs, or over their int8 quantization and
+        its scale for ``lut_dtype="int8"``."""
+        def run(luts, *args, rows=None, lut_dtype="bf16", **kw):
+            if lut_dtype == "int8":
+                q, sc = kernels.quantize_luts_int8(luts)
+                return plain(q, *args, scale=sc, **kw)
+            return plain(luts, *args, **kw)
+        return run
+
+    def scaled(plain):
+        return lambda luts, scale, *args, rows=None, **kw: plain(
+            luts, *args, scale=scale, **kw)
+
+    swap = {"adc_scan": int8_luts(kernels.adc_scan_plain),
+            "adc_scan_int8": scaled(kernels.adc_scan_plain),
+            "adc_scan_binned_int8": scaled(kernels.adc_scan_binned_plain),
             "budget_adc": kernels.budget_adc_plain,
-            "budget_adc_grouped": ungrouped(kernels.budget_adc_plain),
+            "budget_adc_grouped": int8_luts(kernels.budget_adc_plain),
+            "budget_adc_grouped_int8": scaled(kernels.budget_adc_plain),
             "budget_exact": kernels.budget_exact_plain,
             "budget_exact_grouped": ungrouped(kernels.budget_exact_plain)}
     saved = {name: getattr(kernels, name) for name in swap}
@@ -246,6 +290,74 @@ def budget_boundary_checks(torch, kernels) -> None:
         f"cases agree")
 
 
+def int8_boundary_checks(torch, kernels) -> None:
+    """Phase 3a: K3/K5/K8 against their plain versions. K3 and K5 at
+    N ∈ {2047, 2048, 2049, 8191, 8193}, B ∈ {1, 33, 257} and the codebooks
+    of I8_BOOKS (12×1024 stages 8 queries a block, 15×1024 four);
+    K8 at block_t ∈ {128, 256, 1024}, B ∈ {1, 257}, the budget codebooks
+    and 12×16, with the inf tile and pad rows as in the K6/K7 cases."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    n_cases = 0
+    for n in (2047, 2048, 2049, 8191, 8193):
+        for B in (1, 33, 257):
+            for m, k, dt in I8_BOOKS:
+                luts = torch.rand(B, m, k, generator=g, device="cuda") * 4
+                codes_t = torch.randint(0, k, (m, n), generator=g,
+                                        device="cuda").to(getattr(torch, dt))
+                q, sc = kernels.quantize_luts_int8(luts)
+                what = f"n={n} B={B} {m}x{k}"
+                dense = kernels.adc_scan_plain(q, codes_t, scale=sc)
+                check(torch.equal(kernels.adc_scan_int8(q, sc, codes_t),
+                                  dense), f"adc_scan_int8 {what} differs")
+                mins, ids = kernels.adc_scan_binned_int8(q, sc, codes_t)
+                ref, ref_ids = kernels.adc_scan_binned_plain(q, codes_t,
+                                                             scale=sc)
+                check(torch.equal(mins, ref) and torch.equal(ids, ref_ids),
+                      f"adc_scan_binned_int8 {what} differs")
+                kernels.verify_binned(
+                    mins, ids, ref, lambda i: torch.gather(dense, 1, i),
+                    block_n=2048, bins=128, valid_n=n, atol=0.0)
+                n_cases += 2
+    nt, P = 6, 5
+    for block_t in (128, 256, 1024):
+        na = (nt + 1) * block_t
+        rowterm = torch.randn(na, generator=g, device="cuda")
+        rowterm[block_t + block_t // 2:2 * block_t] = float("inf")
+        rowterm[nt * block_t:] = float("inf")
+        for B in (1, 257):
+            tiles = torch.randint(0, nt + 1, (B, P), generator=g,
+                                  device="cuda", dtype=torch.int32)
+            tiles[:, -1] = nt
+            for m, k, dt in BUDGET_BOOKS + ((12, 16, "uint8"),):
+                luts = torch.rand(B, m, k, generator=g, device="cuda") * 4
+                codes_t = torch.randint(0, k, (m, na), generator=g,
+                                        device="cuda").to(getattr(torch, dt))
+                q, sc = kernels.quantize_luts_int8(luts)
+                budget_err(torch, kernels.budget_adc_grouped_int8(
+                    q, sc, codes_t, rowterm, tiles, block_t=block_t,
+                    rows=32), kernels.budget_adc_plain(
+                    q, codes_t, rowterm, tiles, block_t=block_t, scale=sc),
+                    "budget_adc_grouped_int8",
+                    f"block_t={block_t} B={B} {m}x{k}")
+                n_cases += 1
+    torch.cuda.synchronize()
+    log(f"[3] boundary shapes: {n_cases} K3/K5/K8 kernel-vs-plain cases "
+        f"agree")
+
+
+def same_top_k(torch, d1, i1, d2, i2, atol: float, what: str) -> None:
+    """Two top-k results agree up to ties: distances within ``atol`` and
+    every id strictly inside one side's top-k is in the other's."""
+    check(bool(torch.allclose(d1, d2, atol=atol, rtol=0)),
+          f"{what}: distances differ by more than {atol}")
+    kth = torch.where(torch.isfinite(d2), d2, -float("inf")).amax(1,
+                                                                  keepdim=True)
+    for ds, ids, other in ((d1, i1, i2), (d2, i2, i1)):
+        inside = ds < kth - atol
+        hit = (ids[:, :, None] == other[:, None, :]).any(-1)
+        check(bool((hit | ~inside).all()), f"{what}: a top-k id differs")
+
+
 def profile_paths(torch, kernels, paths: dict, card: str, out: str,
                   calls: int = 3) -> None:
     """Phase 6: each path once to warm up, then ``calls`` calls under
@@ -305,6 +417,103 @@ def rows_to_ids(torch, store, rows, names, k: int):
     return torch.tensor([(per[n] + [-1] * k)[:k] for n in names])
 
 
+def insert_phase(torch, ExactIndex, eng, exact8, run_path,
+                 path_launches: dict, card: str) -> dict:
+    """Phase 7: ``insert_batch`` of INSERT_TERMS new terms "w{i} w{i+N/2}"
+    (distinct, each the mean of two existing words) in batches of
+    INSERT_BATCH, with the engine's LUT knob at int8. After each batch:
+    the standalone int8 exact index ``exact8`` is extended with the batch's
+    rows and held to a fresh int8 build on the grown table; every term of
+    the batch is its own exact top-1; PQ-PV20 and IVFADC-PV20 find 256 of
+    them among their own top 5 (the last batch crosses the IVFADC tail's
+    capacity, so the splice runs on the card). Then the int8 kernels and
+    K6 run once more on the grown tables."""
+    eng.set_pq_lut_dtype("int8")
+    eng.set_pvf(20)
+    eng.set_w(3)
+    terms = [f"w{i} w{i + N // 2}" for i in range(INSERT_TERMS)]
+    out = {"batches": []}
+    splices = 0
+    for b0 in range(0, INSERT_TERMS, INSERT_BATCH):
+        batch = terms[b0:b0 + INSERT_BATCH]
+        tail_before = eng.ivfadc.tail_count
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_ins = eng.insert_batch(batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(n_ins == len(batch), f"insert_batch took {n_ins} of "
+              f"{len(batch)} new terms")
+        spliced = eng.ivfadc.tail_count < tail_before + len(batch)
+        splices += spliced
+        ids = torch.tensor(eng.store.get_ids(batch), device="cuda")
+        check(bool((ids == torch.arange(N + b0, N + b0 + len(batch),
+                                        device="cuda")).all()),
+              "inserted terms did not get the next row ids")
+        rows = eng.store.vectors_norm[ids]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        exact8 = exact8.extended(eng.store.vectors_norm, rows)
+        torch.cuda.synchronize()
+        t_ext = time.perf_counter() - t1
+        fresh = ExactIndex(eng.store.vectors_norm, "int8")
+        qs = torch.cat([rows[:128], eng.store.vectors_norm[:128]])
+        same_top_k(torch, *exact8.search(qs, K), *fresh.search(qs, K), 1e-5,
+                   f"extended int8 exact after {b0 + len(batch)} inserts")
+        del fresh
+        top1 = torch.cat([eng.exact.search(rows[s:s + 512], 1)[1][:, 0]
+                          for s in range(0, len(batch), 512)])
+        check(bool((top1 == ids).all()),
+              f"{int((top1 != ids).sum())} inserted terms are not their own "
+              f"exact top-1")
+        selfrec = {}
+        for fam, key in (("k_nearest_neighbour_pq_pv", "pq_pv20_self@5"),
+                         ("k_nearest_neighbour_ivfadc_pv",
+                          "ivfadc_pv20_self@5")):
+            eng.set_knn_function(fam)
+            _, got = eng.knn_matrix(rows[:256], 5)
+            selfrec[key] = float((got == ids[:256, None]).any(1).float()
+                                 .mean())
+            check(selfrec[key] >= INSERT_FLOORS[key],
+                  f"{key} {selfrec[key]:.4f} < {INSERT_FLOORS[key]} after "
+                  f"{b0 + len(batch)} inserts")
+        row = {"terms": b0 + len(batch), "terms_per_s": n_ins / dt,
+               "insert_s": dt, "extended_s": t_ext, "spliced": bool(spliced),
+               "ivfadc_tail": eng.ivfadc.tail_count, **selfrec}
+        out["batches"].append(row)
+        log(f"[7] insert batch {b0 // INSERT_BATCH + 1}: {n_ins} terms in "
+            f"{dt:.3f} s ({n_ins / dt:.0f} terms/s), int8 exact extended() "
+            f"{t_ext * 1e3:.2f} ms, IVFADC tail {eng.ivfadc.tail_count}"
+            f"{' (spliced)' if spliced else ''}, " + ", ".join(
+                f"{k} {v:.4f}" for k, v in selfrec.items()) + f" on {card}")
+    check(splices >= 1, "no insert batch spliced the IVFADC tail")
+    new_ids = torch.arange(N, N + INSERT_TERMS, device="cuda")
+    qnew = eng.store.vectors_norm[new_ids[:EVAL_Q]]
+
+    def grown():
+        eng.set_knn_function("k_nearest_neighbour_pq")
+        eng.knn_matrix(qnew, K)
+        eng.set_knn_function("k_nearest_neighbour_pq_pv")
+        eng.knn_matrix(qnew, K)
+        eng.set_knn_function("k_nearest_neighbour_ivfadc_pv")
+        eng.knn_matrix(qnew, K)
+        eng.set_statistics_table(None)
+        eng.set_alpha(200)
+        eng.set_method_flag(0)
+        targets = torch.cat([torch.arange(JOIN_T, device="cuda"), new_ids])
+        qs = terms[:JOIN_Q]
+        rows = eng.knn_in_ivpq_batch(qs, JOIN_K, targets)
+        check(len(rows) >= len(qs) * JOIN_K * 9 // 10, "join after insert")
+
+    run_path("after_insert", grown)
+    for name in ("adc_scan_int8", "adc_scan_binned_int8", "budget_adc",
+                 "budget_adc_grouped_int8"):
+        check(path_launches["after_insert"].get(name, 0) > 0,
+              f"{name} did not launch on the grown tables")
+    eng.set_pq_lut_dtype("bf16")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="OUT.json",
@@ -342,6 +551,7 @@ def main() -> int:
     # ---------------------------------------------------------- 3a: edges
     boundary_checks(torch, kernels)
     budget_boundary_checks(torch, kernels)
+    int8_boundary_checks(torch, kernels)
 
     # ------------------------------------------------- 4 (set-up): data
     dev = torch.device("cuda")
@@ -391,6 +601,21 @@ def main() -> int:
         mins, ids, ref, lambda i: torch.gather(dense, 1, i), block_n=2048,
         bins=128, valid_n=N, atol=TOL["adc_scan_binned"])
     del dense, mins, ids, ref
+    # K3/K5 at the same shape, over the same LUTs quantized to int8
+    ql, sc = kernels.quantize_luts_int8(luts)
+    dense = kernels.adc_scan_plain(ql, codes_t, scale=sc)
+    errs["adc_scan_int8"] = float((kernels.adc_scan_int8(ql, sc, codes_t)
+                                   - dense).abs().max())
+    check(errs["adc_scan_int8"] <= TOL["adc_scan_int8"],
+          f"adc_scan_int8 main path: err {errs['adc_scan_int8']}")
+    mins, ids = kernels.adc_scan_binned_int8(ql, sc, codes_t)
+    ref, ref_ids = kernels.adc_scan_binned_plain(ql, codes_t, scale=sc)
+    check(torch.equal(ids, ref_ids), "adc_scan_binned_int8 main path: ids "
+          "differ from the plain version")
+    errs["adc_scan_binned_int8"] = kernels.verify_binned(
+        mins, ids, ref, lambda i: torch.gather(dense, 1, i), block_n=2048,
+        bins=128, valid_n=N, atol=TOL["adc_scan_binned_int8"])
+    del dense, mins, ids, ref, ref_ids
     qb = kernels.pad_queries(q1024, fused._tiled.shape[1])
     mins, ids = kernels.fused_exact_scan(qb, fused._tiled,
                                          fused._tiled_norms)
@@ -434,6 +659,7 @@ def main() -> int:
     jt100v = ph100k.tiles(with_vecs=True)
     qj = qjoin[:512]
     luts_join = lut.build_luts(qj, ivpq.codebook.centroids)
+    ql_join, sc_join = kernels.quantize_luts_int8(luts_join)
     tiles_j = join_plan(jt100, qj, 200, stats100k)
     tiles_jv = join_plan(jt100v, qj, 200, stats100k)
     tiles_1 = join_plan(jt100v, q256[7:8], 200, stats100k)
@@ -470,6 +696,14 @@ def main() -> int:
                 qj, jt100v.vecs, jt100v.rownorm, tiles_jv,
                 block_t=jt100v.block_t),
             f"join 100k method 1 B=512 P={tiles_jv.shape[1]} d=300"),
+        "budget_adc_grouped_int8": (
+            lambda: kernels.budget_adc_grouped_int8(
+                ql_join, sc_join, jt100.codes_t, jt100.rowterm, tiles_j,
+                block_t=jt100.block_t, rows=32),
+            lambda: kernels.budget_adc_plain(
+                ql_join, jt100.codes_t, jt100.rowterm, tiles_j,
+                block_t=jt100.block_t, scale=sc_join),
+            f"join 100k int8 B=512 P={tiles_j.shape[1]} block_t=256 30x32"),
     }
     for name, (kfn, pfn, what) in shapes.items():
         errs[name] = budget_err(torch, kfn(), pfn(), name, what)
@@ -595,10 +829,62 @@ def main() -> int:
     rec["join_3M_m2_a600@5"] = recall_at(ids5, gt_3m, 5)
     rec["join_3M_m2_a600@10"] = recall_at(ids10, gt_3m, 10)
 
-    launches = {name: 0 for name in kernels.KERNELS}
-    for counts in path_launches.values():
-        for name, v in counts.items():
-            launches[name] += v
+    # slice 3: the int8 configuration
+    eng.set_pq_lut_dtype("int8")
+    eng.set_knn_function("k_nearest_neighbour_pq")
+    _, ids_pq8 = run_path("pq_int8_knn_matrix",
+                          lambda: eng.knn_matrix(q256, K))
+    check(path_launches["pq_int8_knn_matrix"].get("adc_scan_int8", 0) > 0,
+          "int8 PQ knn did not launch adc_scan_int8")
+    eng.set_knn_function("k_nearest_neighbour_pq_pv")
+    d_pv8, ids_pv8 = run_path("pq_int8_pv20_knn_matrix",
+                              lambda: eng.knn_matrix(q256, K))
+    check(path_launches["pq_int8_pv20_knn_matrix"].get(
+        "adc_scan_binned_int8", 0) > 0,
+        "int8 PQ-PV knn did not launch adc_scan_binned_int8")
+    check(bool(torch.isfinite(d_pv8).all()), "int8 PQ-PV distances")
+    rec.update({"pq_int8@5": recall_at(ids_pq8, gt256, 5),
+                "pq_int8@10": recall_at(ids_pq8, gt256, 10),
+                "pq_int8_pv20@5": recall_at(ids_pv8, gt256, 5),
+                "pq_int8_pv20@10": recall_at(ids_pv8, gt256, 10)})
+    eng.set_statistics_table("t100k")
+    eng.set_alpha(200)
+    for method in (0, 2):
+        name = f"join_int8_m{method}_a200"
+        ids5 = run_path(name, lambda m=method: join(name, m, "t100k"))
+        check(path_launches[name].get("budget_adc_grouped_int8", 0) > 0,
+              f"{name} did not launch budget_adc_grouped_int8")
+        ids10 = join(name, method, "t100k", k=K, qw=jwords[:EVAL_Q])
+        rec[f"{name}@5"] = recall_at(ids5, gt_join, 5)
+        rec[f"{name}@10"] = recall_at(ids10, gt_join, 10)
+    eng.set_statistics_table(None)
+    eng.set_alpha(600)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ids5 = run_path("join_int8_3M_m2_a600",
+                        lambda: join("join_int8_3M", 2, "all"))
+    check(any("no int8 variant" in str(w.message) for w in caught),
+          "the int8 join over 3M did not warn that it keeps float LUTs")
+    check(path_launches["join_int8_3M_m2_a600"].get("budget_adc", 0) > 0,
+          "the int8 join over 3M did not keep the per-query kernel")
+    rec["join_int8_3M_m2_a600@5"] = recall_at(ids5, gt_3m, 5)
+    eng.set_pq_lut_dtype("bf16")
+    t0 = time.perf_counter()
+    exact8 = ExactIndex(store.vectors_norm, "int8")
+    torch.cuda.synchronize()
+    log(f"[4] int8 exact index built in {time.perf_counter() - t0:.2f} s")
+    _, ids_x8 = run_path("exact_int8_b256", lambda: exact8.search(q256, K))
+    rec.update({"exact_int8@5": recall_at(ids_x8, gt256, 5),
+                "exact_int8@10": recall_at(ids_x8, gt256, 10)})
+
+    def tally():
+        launches = {name: 0 for name in kernels.KERNELS}
+        for counts in path_launches.values():
+            for name, v in counts.items():
+                launches[name] += v
+        return launches
+
+    launches = tally()
     for name, counts in path_launches.items():
         log(f"[4] path {name} launched {counts}")
     check(all(v > 0 for v in launches.values()),
@@ -607,6 +893,10 @@ def main() -> int:
         f"{k} {v:.4f}" for k, v in rec.items()))
     for name, floor in FLOORS.items():
         check(rec[name] >= floor, f"{name} {rec[name]:.4f} < floor {floor}")
+    for name, ref in INT8_DROP.items():
+        check(rec[name] >= rec[ref] - INT8_MAX_DROP,
+              f"{name} {rec[name]:.4f} is more than {INT8_MAX_DROP} below "
+              f"{ref} {rec[ref]:.4f}")
 
     # ---------------------------------------------------------- 5: times
     kernel_ms, plain_ms = {}, {}
@@ -621,6 +911,12 @@ def main() -> int:
                                              fused._tiled_norms),
             lambda: kernels.fused_exact_scan_plain(qb, fused._tiled,
                                                    fused._tiled_norms)),
+        "adc_scan_int8": (
+            lambda: kernels.adc_scan_int8(ql, sc, codes_t),
+            lambda: kernels.adc_scan_plain(ql, codes_t, scale=sc)),
+        "adc_scan_binned_int8": (
+            lambda: kernels.adc_scan_binned_int8(ql, sc, codes_t),
+            lambda: kernels.adc_scan_binned_plain(ql, codes_t, scale=sc)),
         **{name: (kfn, pfn) for name, (kfn, pfn, _) in shapes.items()},
     }
     for name, (kfn, pfn) in pairs.items():
@@ -632,14 +928,18 @@ def main() -> int:
         log(f"[5] kernel {name}: {kernel_ms[name]:.3f} ms, plain "
             f"{plain_ms[name]:.3f} ms per call (p50 of 6, plain-kernel-"
             f"kernel-plain) on {card}")
-    del luts
+    del luts, ql, sc
 
-    def joined(method, targets, alpha, stats):
+    def joined(method, targets, alpha, stats, lut_dtype="bf16"):
         def go():
             eng.set_method_flag(method)
             eng.set_alpha(alpha)
             eng.set_statistics_table(stats)
-            return eng.knn_in_ivpq_batch(jwords, JOIN_K, targets)
+            eng.set_pq_lut_dtype(lut_dtype)
+            try:
+                return eng.knn_in_ivpq_batch(jwords, JOIN_K, targets)
+            finally:
+                eng.set_pq_lut_dtype("bf16")
         return go
 
     def ivfadc_pv():
@@ -664,6 +964,14 @@ def main() -> int:
         "join_m1_a200_100k": (joined(1, "t100k", 200, "t100k"), True,
                               JOIN_Q),
         "join_m2_a600_3M": (joined(2, "all", 600, None), True, JOIN_Q),
+        "pq_int8_b256": (lambda: pq.search(q256, K, impl="kernel_int8"),
+                         True, EVAL_Q),
+        "pq_int8_pv20_b256": (
+            lambda: pq.search_pv(q256, K, 20, store.vectors_norm,
+                                 impl="kernel_int8"), True, EVAL_Q),
+        "join_int8_m2_a200_100k": (joined(2, "t100k", 200, "t100k", "int8"),
+                                   True, JOIN_Q),
+        "exact_int8_b256": (lambda: exact8.search(q256, K), False, EVAL_Q),
     }
     plain_alt = {"exact_bf16_fused_b1024": lambda: exact_top_k_precast(
         q1024, fused._table, fused._norms, K)}
@@ -673,7 +981,7 @@ def main() -> int:
         row = {"ms_per_query": p50(kt) / b}
         if has_plain:
             with plain_kernels(kernels):
-                if name.startswith("pq"):
+                if name in ("pq_b256", "pq_pv20_b256"):
                     pfn = {"pq_b256": lambda: pq.search(q256, K,
                                                         impl="plain"),
                            "pq_pv20_b256": lambda: pq.search_pv(
@@ -713,6 +1021,12 @@ def main() -> int:
             **{name: fn for name, (fn, _, _) in paths.items()}, **singles},
             card, args.profile)
 
+    # ------------------------------------------------------- 7: insert
+    inserted = insert_phase(torch, ExactIndex, eng, exact8, run_path,
+                            path_launches, card)
+    log(f"[7] path after_insert launched {path_launches['after_insert']}")
+    launches = tally()
+
     summary = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],
@@ -720,7 +1034,8 @@ def main() -> int:
          "plain_ms": plain_ms[k.name]}
         for k in kernels.KERNELS.values()]}
     log(json.dumps({"recall": rec, "paths_ms_per_query": times,
-                    "path_launches": path_launches, "gpu": card}))
+                    "insert": inserted, "path_launches": path_launches,
+                    "gpu": card}))
     log(json.dumps(summary))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
-"""FREDDY-compatible engine — slices 1 and 2 of the port.
+"""FREDDY-compatible engine — slices 1 to 3 of the port.
 
-Counterpart of ``postgres_word2vec_tpu/api.py`` for two paths from a
+Counterpart of ``postgres_word2vec_tpu/api.py`` for these paths from a
 ``VectorStore`` through ``Freddy.build``:
 
 - the ``knn`` façade over the whole store in five families: exact
@@ -13,7 +13,12 @@ Counterpart of ``postgres_word2vec_tpu/api.py`` for two paths from a
   the IVPQ index with ``alpha``, ``method``, ``confidence``, ``pvf``,
   statistics tables (``create_statistics``) and reusable target handles
   (``prepare_targets``), and the exact join baseline
-  ``knn_search_in_batch``.
+  ``knn_search_in_batch``;
+- the int8 configuration: ``pq_lut_dtype="int8"`` (the PQ scans and the
+  join's budget round over int8 LUTs, kernels K3, K5 and K8 on the card)
+  and ``exact_dtype="int8"``;
+- online insert, ``insert_batch``: new multi-word terms appended to the
+  store and to every built index.
 
 The dispatch registry (sql:78-132), runtime parameters (sql:188-202),
 result shapes (``(word, similarity)`` rows, ``(query, word, similarity)``
@@ -200,18 +205,15 @@ class Freddy:
         self.params.long_codes_threshold = float(threshold)
 
     def set_pq_lut_dtype(self, dtype: str) -> None:
-        """Select the LUT arithmetic of the ADC scans and the join's budget
-        probe: "bf16" or "int8". The kernels of this port keep LUTs in
-        float32 whatever the setting; "int8" needs the int8 kernels K3, K5
-        and K8, so on a CUDA engine it raises rather than silently skip
-        them. The CPU path has no quantized variant and ignores it, as the
-        JAX engine does off-TPU."""
-        if dtype not in ("bf16", "int8"):
+        """Select the LUT arithmetic of the PQ scans and the join's budget
+        probe: "bf16" (the float path; this port keeps those LUTs float32)
+        or "int8" (per-query int8 LUTs, exact int32 sums: kernels K3 and
+        K5 for PQ, K8 for the join). It applies on a CUDA engine; the CPU
+        path has no quantized variant and ignores it, as the JAX engine
+        does off the TPU."""
+        if dtype not in kernels.LUT_DTYPES:
             raise ValueError(f"pq_lut_dtype must be 'bf16' or 'int8', "
                              f"got {dtype!r}")
-        if dtype == "int8" and self.store.device.type == "cuda":
-            raise NotImplementedError(
-                f"pq_lut_dtype='int8': {kernels.INT8_LUT_ITEM}")
         self.params.pq_lut_dtype = dtype
 
     def set_pv_shortlist(self, policy: str) -> None:
@@ -315,14 +317,25 @@ class Freddy:
                         ) -> tuple[torch.Tensor, torch.Tensor]:
         return self.exact.search(q, k)
 
+    def _pq_impl(self) -> str | None:
+        """Scan impl from ``pq_lut_dtype``: "kernel_int8" on a CUDA engine
+        set to int8 (the JAX engine's "pallas_int8" on the TPU); None keeps
+        ``PQIndex``'s own choice, which is also what the CPU gets."""
+        if (self.params.pq_lut_dtype == "int8"
+                and self.store.device.type == "cuda"):
+            return "kernel_int8"
+        return None
+
     def _pq_knn_core(self, q: torch.Tensor, k: int
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-        return self._require(self.pq, "PQ").search(q, k)
+        return self._require(self.pq, "PQ").search(q, k,
+                                                   impl=self._pq_impl())
 
     def _pq_pv_knn_core(self, q: torch.Tensor, k: int
                         ) -> tuple[torch.Tensor, torch.Tensor]:
         pq = self._require(self.pq, "PQ")
         return pq.search_pv(q, k, self.params.pvf, self.store.vectors_norm,
+                            impl=self._pq_impl(),
                             shortlist=self.params.pv_shortlist)
 
     def _ivfadc_knn_core(self, q: torch.Tensor, k: int
@@ -541,6 +554,53 @@ class Freddy:
                 "exact_approx": self.exact.approx}
         (d / "engine.json").write_text(json.dumps(meta, indent=2))
 
+    # ============================================================== insert
+    def insert_batch(self, terms: Sequence[str]) -> int:
+        """Online insertion (freddy.c:1403-1658; JAX api.py:1433-1488):
+        skip terms already in the store and terms whose every word is
+        unknown, then append each new term — the mean of its known words'
+        vectors — to the store and to every built index (running-mean
+        codebook updates, no rebuild). Returns the number of inserted
+        terms.
+
+        The indexes get the renormalized mean of the words' normalized
+        rows; the store's normalized table gets the normalized mean of
+        their raw rows (``extend_inplace``), as in the JAX engine. A fused
+        exact index is rebuilt (its tiled layout does not extend); any
+        other exact index grows in place (:meth:`ExactIndex.extended`)."""
+        new_words: list[str] = []
+        id_lists: list[list[int]] = []
+        seen: set[str] = set()
+        for term in terms:
+            if term in self.store or term in seen:
+                continue  # freddy.c:1498-1514 skips existing words
+            seen.add(term)
+            ids = [self.store.word_to_id[w] for w in term.split(" ")
+                   if w in self.store]
+            if not ids:
+                continue  # every word OOV → NULL vector in the reference
+            new_words.append(term)
+            id_lists.append(ids)
+        if not new_words:
+            return 0
+        norm_new, raw_new = _tokenize_terms_batch(
+            self.store.vectors, self.store.vectors_norm, id_lists)
+        self.store = self.store.extend_inplace(new_words, raw_new)
+        if self.exact.fused:
+            self.exact = ExactIndex(self.store.vectors_norm,
+                                    self.exact.compute_dtype,
+                                    approx=self.exact.approx, fused=True)
+        else:
+            self.exact = self.exact.extended(self.store.vectors_norm,
+                                             norm_new)
+        if self.pq is not None:
+            self.pq = self.pq.add(norm_new)
+        if self.ivfadc is not None:
+            self.ivfadc = self.ivfadc.add(norm_new)
+        if self.ivpq is not None:
+            self.ivpq = self.ivpq.add(norm_new)
+        return len(new_words)
+
     @classmethod
     def load(cls, directory, *, device: torch.device | str | None = None,
              mesh=None) -> "Freddy":
@@ -560,16 +620,49 @@ class Freddy:
                 with np.load(d / f"{name}.npz", allow_pickle=False) as f:
                     indexes[name] = from_numpy({n: f[n] for n in f.files},
                                                device)
-        meta = json.loads((d / "engine.json").read_text())
+        meta = convert.engine_meta(
+            json.loads((d / "engine.json").read_text()))
         eng = cls(store, params=RuntimeParams(**meta["params"]),
-                  exact_dtype=meta.get("exact_dtype", "float32"),
-                  exact_approx=meta.get("exact_approx", False), **indexes)
-        eng.dispatch = dict(meta["dispatch"])
+                  exact_dtype=meta["exact_dtype"],
+                  exact_approx=meta["exact_approx"], **indexes)
+        eng.dispatch = meta["dispatch"]
         if (d / "statistics.npz").exists():
             with np.load(d / "statistics.npz", allow_pickle=False) as f:
                 eng.statistics = {n: torch.as_tensor(f[n], device=device)
                                   for n in f.files}
         return eng
+
+
+def _tokenize_segments(vectors: torch.Tensor, vectors_norm: torch.Tensor,
+                       flat_ids: torch.Tensor, seg_ids: torch.Tensor,
+                       n_seg: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-term centroids for a whole insert batch (JAX api.py:1491-1506):
+    gather the member rows, take the mean per term, renormalize the mean
+    of the normalized rows (tokenize semantics, sql:1513-1536) →
+    (normalized centroids (n_seg, d), raw centroids (n_seg, d))."""
+    d = vectors.shape[1]
+    sum_n = torch.zeros(n_seg, d, device=vectors.device).index_add_(
+        0, seg_ids, vectors_norm[flat_ids].float())
+    sum_r = torch.zeros(n_seg, d, device=vectors.device).index_add_(
+        0, seg_ids, vectors[flat_ids].float())
+    cnt = torch.clamp_min(torch.bincount(seg_ids, minlength=n_seg).float(),
+                          1.0)[:, None]
+    return vo.vec_normalize(sum_n / cnt), sum_r / cnt
+
+
+def _tokenize_terms_batch(vectors: torch.Tensor, vectors_norm: torch.Tensor,
+                          id_lists: Sequence[Sequence[int]]
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flatten the per-term word-id lists and resolve every term's
+    centroids in one :func:`_tokenize_segments` call (JAX
+    api.py:1509-1529, without its padding to power-of-two sizes, which
+    exists for XLA's compile cache)."""
+    flat = [i for ids in id_lists for i in ids]
+    seg = [t for t, ids in enumerate(id_lists) for _ in ids]
+    dev = vectors.device
+    return _tokenize_segments(
+        vectors, vectors_norm, torch.as_tensor(flat, device=dev),
+        torch.as_tensor(seg, device=dev), len(id_lists))
 
 
 #: Methods of the JAX engine that later items of ROADMAP.md port. Each is
@@ -586,7 +679,7 @@ NOT_PORTED = {
          "analogy_3cosadd_in_ivpq", "groups", "grouping_func",
          "grouping_func_pq", "cluster", "cluster_exact", "cluster_pq",
          "cluster_ivpq", "tokenize", "tokenize_raw", "autotune",
-         "autotune_join", "warmup", "insert_batch"), _ENGINE),
+         "autotune_join", "warmup"), _ENGINE),
     "enable_sharding": _SHARDING,
 }
 

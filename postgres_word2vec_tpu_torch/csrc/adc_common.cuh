@@ -78,3 +78,85 @@ static inline cudaError_t adc_allow_smem(Kernel kernel, size_t bytes) {
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
 }
+
+// ---------------------------------------------------------------- int8 LUTs
+//
+// The int8 kernels (adc_scan_int8.cu, adc_scan_binned_int8.cu,
+// budget_adc_grouped_int8.cu) take per-query int8 LUTs with one float32
+// scale per query. A query's int8 LUT is a quarter of its float32 one (3 KB
+// at 12x256), so a block stages up to ADC_I8_MAX_QB = 32 queries, four times
+// K2's 8. The staged LUTs are query-minor: entry (j, c) of the QB staged
+// queries is QB consecutive bytes, so a thread fetches the lookups of all its
+// queries for one code with QB/16 16-byte shared-memory loads, and sums them
+// into QB int32 accumulators. The sums are exact (|sum| <= m*127).
+#define ADC_I8_MAX_QB 32
+
+// Queries staged per int8 block for an (m, k) codebook: the largest of 32,
+// 16, 8 and 4 whose LUTs fit in ADC_SMEM_TARGET, else 4 if four fit in a
+// block's shared memory at all, else 0.
+static inline int adc_i8_query_block(int m, int k) {
+  const long long per_query = (long long)m * k;
+  for (int qb = ADC_I8_MAX_QB; qb >= 4; qb /= 2)
+    if (qb * per_query <= ADC_SMEM_TARGET) return qb;
+  return 4 * per_query <= ADC_SMEM_MAX ? 4 : 0;
+}
+
+// Stage the int8 LUTs of nq queries into lut_s, query-minor: lut_s[r*QB + q]
+// = luts[qid[q], r] for r = j*k + c. Slots q >= nq (and queries whose id is
+// negative) are zero. Reads run along r, so they coalesce.
+template <int QB>
+__device__ __forceinline__ void adc_i8_stage(int8_t* lut_s,
+                                             const int8_t* __restrict__ luts,
+                                             const int* qid, int nq, int mk) {
+  for (int i = threadIdx.x; i < QB * mk; i += blockDim.x) {
+    const int q = i / mk;
+    const int r = i - q * mk;
+    const int id = q < nq ? qid[q] : -1;
+    lut_s[r * QB + q] = id >= 0 ? luts[(long long)id * mk + r] : (int8_t)0;
+  }
+  __syncthreads();
+}
+
+// acc[q] += staged int8 lookup of entry r = j*k + c, for all QB queries.
+template <int QB>
+__device__ __forceinline__ void adc_i8_add(int (&acc)[QB],
+                                           const int8_t* lut_s, int r) {
+  const int8_t* e = lut_s + r * QB;
+  uint32_t w[QB / 4];
+  if constexpr (QB % 16 == 0) {
+#pragma unroll
+    for (int v = 0; v < QB / 16; ++v) {
+      const uint4 x = reinterpret_cast<const uint4*>(e)[v];
+      w[4 * v] = x.x;
+      w[4 * v + 1] = x.y;
+      w[4 * v + 2] = x.z;
+      w[4 * v + 3] = x.w;
+    }
+  } else if constexpr (QB == 8) {
+    const uint2 x = *reinterpret_cast<const uint2*>(e);
+    w[0] = x.x;
+    w[1] = x.y;
+  } else {
+    static_assert(QB == 4, "QB must be 4, 8, 16 or 32");
+    w[0] = *reinterpret_cast<const uint32_t*>(e);
+  }
+#pragma unroll
+  for (int t = 0; t < QB / 4; ++t) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      acc[4 * t + i] += (int)(int8_t)(uint8_t)(w[t] >> (8 * i));
+  }
+}
+
+// Int8 ADC sums of code row n for all QB staged queries, over subspaces
+// j = 0 .. m-1 (integer sums: the order does not matter).
+template <int QB, typename CodeT>
+__device__ __forceinline__ void adc_i8_row(int (&acc)[QB], const int8_t* lut_s,
+                                           const CodeT* __restrict__ codes,
+                                           long long n, long long N, int m,
+                                           int k) {
+#pragma unroll
+  for (int q = 0; q < QB; ++q) acc[q] = 0;
+  for (int j = 0; j < m; ++j)
+    adc_i8_add<QB>(acc, lut_s, j * k + (int)codes[(long long)j * N + n]);
+}

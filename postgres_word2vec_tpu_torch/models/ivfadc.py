@@ -16,10 +16,14 @@ grouped by tile) on the card, or their plain versions on the CPU. The
 reference's "widen until ≥ k found" loop (freddy.c:262-378) is the rank
 window escalation of :meth:`IVFADCIndex.search_adaptive`.
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: the insert tail (``add`` / ``flush``, the JAX ``_splice`` and
-``_tail_scan``), the row-1 probe ``_ivfadc_probe`` and the streaming
-build of ``models/builders.py``.
+Online insert is the JAX package's LSM tail: :meth:`IVFADCIndex.add`
+appends rows to a fixed-capacity unsorted tail that every search scans
+(:func:`_tail_scan`, plain torch as in the JAX package) and merges; when
+the tail would overflow, :meth:`IVFADCIndex._splice` merges it into the
+CSR lists.
+
+Not ported yet: the row-1 probe ``_ivfadc_probe`` and the streaming build
+of ``models/builders.py``.
 """
 
 from __future__ import annotations
@@ -31,12 +35,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from postgres_word2vec_tpu_torch.models.pq import PQCodebook, _sample_rows
-from postgres_word2vec_tpu_torch.ops import kernels, kmeans, lut
+from postgres_word2vec_tpu_torch.models.pq import (PQCodebook, _sample_rows,
+                                                   online_codebook_update)
+from postgres_word2vec_tpu_torch.ops import adc, kernels, kmeans, lut
 from postgres_word2vec_tpu_torch.ops import topk as topk_ops
 from postgres_word2vec_tpu_torch.ops.vector_ops import no_tf32
-
-_INSERT = "ROADMAP.md queue 1, item 6 (IVFADC insert tail)"
 
 
 class CoarseQuantizer(NamedTuple):
@@ -170,9 +173,42 @@ def _ivfadc_probe_budget(queries: torch.Tensor, coarse: torch.Tensor,
     return vals, ids, found, needed
 
 
+def _tail_scan(queries: torch.Tensor, coarse: torch.Tensor,
+               centroids: torch.Tensor, tail_codes: torch.Tensor,
+               tail_cells: torch.Tensor, tail_ids: torch.Tensor,
+               tail_rowterm: torch.Tensor, tail_count: int, w_lo: int,
+               w_hi: int, k: int) -> tuple[torch.Tensor, ...]:
+    """Scan the insert tail against each query's probed-cell window
+    [w_lo, w_hi): dense residual ADC over the (small) tail, masked to rows
+    whose cell the query probes → (vals (B, k'), int64 ids, −1 past the
+    rows found, rows seen (B,)), k' = min(k, TAIL_CAP). ``tail_rowterm``
+    is kept against the current codebook by ``add`` (JAX ivfadc.py:211-239,
+    plain in both packages)."""
+    cap = tail_codes.shape[0]
+    cd = kmeans.pairwise_sqdist(queries, coarse)
+    _, cells = topk_ops.top_k_smallest(cd, w_hi)
+    cells = cells[:, w_lo:]
+    luts = lut.build_luts(queries, centroids)
+    d = adc.adc_distances(luts, tail_codes)                   # (B, cap)
+    qf = queries.float()
+    qq = torch.sum(qf * qf, dim=-1)
+    tc = tail_cells.long()
+    dist = d + tail_rowterm[None, :] + cd[:, tc] - qq[:, None]
+    probed = torch.any(tc[None, :, None] == cells[:, None, :], dim=-1)
+    valid = (torch.arange(cap, device=queries.device) < tail_count)[None] \
+        & probed
+    dist = torch.where(valid, torch.clamp_min(dist, 0.0), float("inf"))
+    vals, pos = topk_ops.top_k_smallest(dist, min(k, cap))
+    ids = torch.where(torch.isfinite(vals), tail_ids.long()[pos], -1)
+    return vals, ids, valid.sum(-1)
+
+
 @dataclasses.dataclass
 class IVFADCIndex:
-    """CSR inverted file over PQ-coded residuals, on one device."""
+    """CSR inverted file over PQ-coded residuals, on one device, with the
+    LSM insert tail of the JAX package: a fixed-capacity unsorted slab of
+    freshly inserted rows (``tail_*``, ``TAIL_CAP`` rows) that every search
+    scans and merges, spliced into the CSR lists when it would overflow."""
 
     coarse: CoarseQuantizer
     codebook: PQCodebook          # residual codebook (m, k, dsub)
@@ -182,12 +218,20 @@ class IVFADCIndex:
     assignments: torch.Tensor     # (n,) int32 row id → coarse cell
     list_cap: int                 # largest cell
 
+    tail_codes: torch.Tensor | None = None     # (TAIL_CAP, m)
+    tail_cells: torch.Tensor | None = None     # (TAIL_CAP,) int32
+    tail_ids: torch.Tensor | None = None       # (TAIL_CAP,) int32
+    tail_rowterm: torch.Tensor | None = None   # (TAIL_CAP,) float32
+    tail_count: int = 0
+
     _tiled: TiledIVF | None = dataclasses.field(default=None, repr=False,
                                                 compare=False)
 
+    TAIL_CAP = 8192
+
     @property
     def size(self) -> int:
-        return int(self.codes_sorted.shape[0])
+        return int(self.codes_sorted.shape[0]) + int(self.tail_count)
 
     @property
     def num_cells(self) -> int:
@@ -307,6 +351,11 @@ class IVFADCIndex:
         vals, ids, found, needed = _ivfadc_probe_budget(
             queries, self.coarse.centroids, self.codebook.centroids,
             self.tiled(), 0, w_eff, k, p)
+        if self.tail_count:
+            tv, ti, tf = self._scan_tail(queries, 0, w_eff, k)
+            vals, ids = topk_ops.merge_top_k_smallest(vals, ids, tv, ti, k)
+            found = found + tf
+            needed = needed + tf
         if return_info:
             return vals, ids, {"found": found, "needed": needed,
                                "budget_tiles": p}
@@ -326,6 +375,10 @@ class IVFADCIndex:
         vals, ids, total_found, _ = _ivfadc_probe_budget(
             queries, self.coarse.centroids, self.codebook.centroids, t,
             w_lo, w_hi, k, p)
+        if self.tail_count:
+            tv, ti, tf = self._scan_tail(queries, 0, w_hi, k)
+            vals, ids = topk_ops.merge_top_k_smallest(vals, ids, tv, ti, k)
+            total_found = total_found + tf
         for _ in range(max_rounds - 1):
             if bool(torch.all(total_found >= k)) or w_hi >= self.num_cells:
                 break
@@ -337,7 +390,19 @@ class IVFADCIndex:
                 w_lo, w_hi, k, p)
             vals, ids = topk_ops.merge_top_k_smallest(vals, ids, v2, i2, k)
             total_found = total_found + found
+            if self.tail_count:
+                tv, ti, tf = self._scan_tail(queries, w_lo, w_hi, k)
+                vals, ids = topk_ops.merge_top_k_smallest(vals, ids, tv, ti,
+                                                          k)
+                total_found = total_found + tf
         return vals, ids
+
+    def _scan_tail(self, queries: torch.Tensor, w_lo: int, w_hi: int,
+                   k: int) -> tuple[torch.Tensor, ...]:
+        return _tail_scan(queries, self.coarse.centroids,
+                          self.codebook.centroids, self.tail_codes,
+                          self.tail_cells, self.tail_ids, self.tail_rowterm,
+                          self.tail_count, w_lo, w_hi, k)
 
     def search_pv(self, queries: torch.Tensor, k: int, pvf: int,
                   vectors: torch.Tensor, *, w: int = 3
@@ -351,14 +416,128 @@ class IVFADCIndex:
 
     # ------------------------------------------------------------ mutation
     def add(self, new_vectors: torch.Tensor) -> "IVFADCIndex":
-        raise NotImplementedError(f"IVFADCIndex.add: {_INSERT}")
+        """Online insert (``insert_batch``'s IVFADC leg,
+        freddy.c:1573-1587; JAX ivfadc.py:544-614): flat coarse
+        assignment, residual encode with the running-mean residual codebook
+        update, and an append to the insert tail. When the tail would pass
+        ``TAIL_CAP`` rows, the tail and the new rows are spliced into the
+        CSR lists instead (:meth:`_splice`).
+
+        The new index shares the tail buffers, written in place past the
+        receiver's ``tail_count`` (which still masks them for the
+        receiver), and keeps the cached tiled layout, whose row term stays
+        that of the earlier codebook until the next splice — as in the JAX
+        package, existing codes are not re-encoded after the update. The
+        tail's row term is recomputed against the new codebook at every
+        add."""
+        cen = self.coarse.centroids
+        assign_new = kmeans.assign(new_vectors, cen)
+        resid = new_vectors.float() - cen[assign_new]
+        cb, new_codes = online_codebook_update(self.codebook, resid)
+        a_new = assign_new.to(torch.int32)
+        m_new = int(a_new.shape[0])
+        new_codes = new_codes.to(self.codes_sorted.dtype)
+        dev = self.codes_sorted.device
+        new_ids = torch.arange(m_new, dtype=torch.int32,
+                               device=dev) + self.size
+        counts = self.coarse.counts + torch.bincount(
+            a_new, minlength=self.num_cells).to(torch.int32)
+        coarse2 = CoarseQuantizer(cen, counts)
+
+        tc = self.tail_count
+        if tc + m_new > self.TAIL_CAP:
+            if tc:
+                new_codes = torch.cat([self.tail_codes[:tc], new_codes])
+                a_new = torch.cat([self.tail_cells[:tc], a_new])
+                new_ids = torch.cat([self.tail_ids[:tc], new_ids])
+            return self._splice(coarse2, cb, new_codes, a_new, new_ids)
+
+        m = self.codes_sorted.shape[1]
+        if self.tail_codes is None:
+            t_codes = torch.zeros(self.TAIL_CAP, m,
+                                  dtype=self.codes_sorted.dtype, device=dev)
+            t_cells = torch.zeros(self.TAIL_CAP, dtype=torch.int32,
+                                  device=dev)
+            t_ids = torch.full((self.TAIL_CAP,), -1, dtype=torch.int32,
+                               device=dev)
+        else:
+            t_codes, t_cells, t_ids = (self.tail_codes, self.tail_cells,
+                                       self.tail_ids)
+        t_codes[tc:tc + m_new] = new_codes
+        t_cells[tc:tc + m_new] = a_new
+        t_ids[tc:tc + m_new] = new_ids
+        # the whole tail's row term against the just-updated codebook:
+        # _tail_scan builds LUTs from the current codebook.
+        t_rt = _compute_rowterm(cen, cb.centroids, t_cells, t_codes)
+        return IVFADCIndex(
+            coarse=coarse2, codebook=cb, cell_offsets=self.cell_offsets,
+            codes_sorted=self.codes_sorted, row_ids=self.row_ids,
+            assignments=self.assignments, list_cap=self.list_cap,
+            tail_codes=t_codes, tail_cells=t_cells, tail_ids=t_ids,
+            tail_rowterm=t_rt, tail_count=tc + m_new, _tiled=self._tiled)
 
     def flush(self) -> "IVFADCIndex":
-        raise NotImplementedError(f"IVFADCIndex.flush: {_INSERT}")
+        """Merge the insert tail into the CSR lists (no-op when empty)."""
+        tc = self.tail_count
+        if not tc:
+            return self
+        return self._splice(self.coarse, self.codebook, self.tail_codes[:tc],
+                            self.tail_cells[:tc], self.tail_ids[:tc])
+
+    def _splice(self, coarse2: CoarseQuantizer, cb: PQCodebook,
+                new_codes: torch.Tensor, a_new: torch.Tensor,
+                new_ids: torch.Tensor) -> "IVFADCIndex":
+        """CSR splice on the device (JAX ivfadc.py:625-676): the new rows
+        sort by cell among themselves and go after their cell's old rows;
+        old rows shift by the new rows of earlier cells, without a global
+        re-sort. The result has no tail and no cached tiled layout."""
+        c_count = self.num_cells
+        dev = self.codes_sorted.device
+        n_old = int(self.codes_sorted.shape[0])
+        m_new = int(a_new.shape[0])
+        a_new = a_new.to(torch.int32)
+        order_new = torch.sort(a_new, stable=True).indices
+        cells_ns = a_new[order_new].long()
+        codes_ns = new_codes[order_new].to(self.codes_sorted.dtype)
+        rid_ns = new_ids.to(torch.int32)[order_new]
+
+        counts_new = torch.bincount(a_new, minlength=c_count)
+        old_off = self.cell_offsets.long()
+        shift = torch.zeros(c_count + 1, dtype=torch.int64, device=dev)
+        shift[1:] = torch.cumsum(counts_new, 0)
+        new_off = old_off + shift
+        cells_old = torch.repeat_interleave(
+            torch.arange(c_count, device=dev), old_off[1:] - old_off[:-1])
+        dest_old = torch.arange(n_old, device=dev) + shift[cells_old]
+        rank_new = torch.arange(m_new, device=dev) - shift[cells_ns]
+        dest_new = old_off[cells_ns + 1] + shift[cells_ns] + rank_new
+
+        codes_out = torch.empty(n_old + m_new, self.codes_sorted.shape[1],
+                                dtype=self.codes_sorted.dtype, device=dev)
+        codes_out[dest_old] = self.codes_sorted
+        codes_out[dest_new] = codes_ns
+        rids_out = torch.empty(n_old + m_new, dtype=torch.int32, device=dev)
+        rids_out[dest_old] = self.row_ids.to(torch.int32)
+        rids_out[dest_new] = rid_ns
+        sizes = new_off[1:] - new_off[:-1]
+        # coarse2 already carries the per-cell counts of every added row
+        return IVFADCIndex(
+            coarse=coarse2, codebook=cb,
+            cell_offsets=new_off.to(torch.int32), codes_sorted=codes_out,
+            row_ids=rids_out,
+            assignments=torch.cat([self.assignments.to(torch.int32), a_new]),
+            list_cap=max(int(sizes.max()), 1) if c_count else 1)
 
     # --------------------------------------------------------- persistence
     def save(self, path: str | Path) -> None:
-        """Write the JAX package's ``ivfadc.npz`` fields."""
+        """Write the JAX package's ``ivfadc.npz`` fields, in canonical CSR
+        form: a non-empty insert tail is flushed first (JAX
+        ivfadc.py:679-682), so the JAX package loads what the port
+        saves."""
+        if self.tail_count:
+            self.flush().save(path)
+            return
+
         def h(t):
             return t.detach().cpu().numpy()
 

@@ -26,7 +26,9 @@ Alpha escalation (``alpha += alpha`` until every query has k results,
 ivpq_search_in.c:639-684) is a host loop over rounds with per-query
 retirement. Ids are global store row ids throughout; methods 1 and 2 read
 raw rows from the store table by id, so no gathered copy of the target
-vectors is kept. ``add`` (online insert) is not ported yet and raises.
+vectors is kept. ``lut_dtype="int8"`` runs the budget round's grouped ADC
+over int8 LUTs (K8). ``add`` is the online insert: multi-index assignment
+and the running-mean fine-codebook update.
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ import torch
 import torch.nn.functional as F
 
 from postgres_word2vec_tpu_torch.models.ivfadc import plan_probe_tiles
-from postgres_word2vec_tpu_torch.models.pq import PQCodebook, _sample_rows
+from postgres_word2vec_tpu_torch.models.pq import (PQCodebook, _sample_rows,
+                                                   online_codebook_update)
 from postgres_word2vec_tpu_torch.ops import adc, kernels, kmeans, lut
 from postgres_word2vec_tpu_torch.ops import topk as topk_ops
 from postgres_word2vec_tpu_torch.ops.vector_ops import no_tf32
@@ -51,8 +54,6 @@ from postgres_word2vec_tpu_torch.ops.vector_ops import no_tf32
 PQ_CALC = 0
 EXACT_CALC = 1
 PQ_PV_CALC = 2
-
-_INSERT = "ROADMAP.md queue 1, item 7 (IVPQ insert)"
 
 #: Queries per block of one budget round. The JAX package needs it for a
 #: TPU scalar-memory limit; the port keeps it so the grouped-vs-per-query
@@ -587,9 +588,11 @@ class IVPQIndex:
         tiled probe; default on the card), "dense" (all targets, masked;
         default on the CPU), or None; ``use_targetlists=False`` forces
         "dense". ``query_chunk`` queries per host chunk (default 8192
-        budget, 1024 dense). ``lut_dtype="int8"`` needs kernel K8, so it
-        raises on the card's budget path; the plain paths ignore it, as the
-        JAX package's plain twin does."""
+        budget, 1024 dense). ``lut_dtype="int8"`` quantizes the budget
+        round's ADC LUTs per query where the grouped kernel is chosen (K8
+        on the card, its plain version on the CPU); where the per-query
+        kernel is chosen it warns and keeps float32 LUTs, and the dense
+        round ignores it — all as in the JAX package."""
         if lut_dtype not in ("bf16", "int8"):
             raise ValueError(f"lut_dtype must be 'bf16' or 'int8', "
                              f"got {lut_dtype!r}")
@@ -610,9 +613,8 @@ class IVPQIndex:
             impl = "dense"
         if impl not in ("budget", "dense"):
             raise ValueError(f"impl must be budget|dense, got {impl!r}")
-        if impl == "budget" and lut_dtype == "int8" and queries.is_cuda:
-            raise NotImplementedError(
-                f"lut_dtype='int8': {kernels.INT8_LUT_ITEM}")
+        if impl != "budget":
+            lut_dtype = "bf16"
         if query_chunk is None:
             query_chunk = 8192 if impl == "budget" else 1024
         jt = None
@@ -708,7 +710,18 @@ class IVPQIndex:
 
     # ------------------------------------------------------------ mutation
     def add(self, new_vectors: torch.Tensor) -> "IVPQIndex":
-        raise NotImplementedError(f"IVPQIndex.add: {_INSERT}")
+        """Online insert (``insert_batch``'s IVPQ leg, freddy.c:1590-1609;
+        JAX ivpq.py:1154-1165): multi-index assignment, running-mean
+        fine-codebook update, appended codes and cells. Returns a new
+        index; join handles prepared before it keep their targets."""
+        new_cells = assign_cells(new_vectors, self.coarse.centroids)
+        cb, new_codes = online_codebook_update(self.codebook, new_vectors)
+        cell_counts = self.coarse.cell_counts + torch.bincount(
+            new_cells, minlength=self.num_cells).to(torch.int32)
+        return IVPQIndex(
+            MultiIndexQuantizer(self.coarse.centroids, cell_counts), cb,
+            torch.cat([self.codes, new_codes.to(self.codes.dtype)]),
+            torch.cat([self.cell_of, new_cells.to(self.cell_of.dtype)]))
 
     # --------------------------------------------------------- persistence
     def save(self, path: str | Path) -> None:

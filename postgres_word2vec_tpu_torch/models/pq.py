@@ -7,10 +7,13 @@ kernel ``pq_search`` (freddy.c:26-170) and the post-verified wrapper
 configs (m=12, k=256 → uint8 codes).
 
 On a CUDA device the exhaustive scan runs through the hand-written scan
-kernels (``ops/kernels.py``: K2 dense, K4 binned) over a cached
-subspace-major ``(m, N)`` code layout; on the CPU it runs the plain chunked
-gather (``ops/adc.py``). ``search_in``, ``add`` and the online codebook
-update are not ported yet and raise ``NotImplementedError``.
+kernels (``ops/kernels.py``: K2 dense, K4 binned, and over int8 LUTs K3
+dense, K5 binned) over a cached subspace-major ``(m, N)`` code layout; on
+the CPU it runs the plain chunked gather (``ops/adc.py``), or for the int8
+modes the kernels' plain versions. Online insert (:meth:`PQIndex.add`)
+runs the reference's sequential running-mean codebook update
+(:func:`online_codebook_update`). ``search_in`` is not ported yet and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,8 +30,7 @@ from postgres_word2vec_tpu_torch.ops import adc, kmeans, lut
 from postgres_word2vec_tpu_torch.ops import kernels
 from postgres_word2vec_tpu_torch.ops.vector_ops import no_tf32
 
-_NOT_YET = ("arrives with ROADMAP.md queue 1, item 8 (engine: in-set kNN "
-            "and online insert)")
+_NOT_YET = "arrives with ROADMAP.md queue 1, item 8 (engine: in-set kNN)"
 
 
 class PQCodebook(NamedTuple):
@@ -76,6 +78,36 @@ def recount(codebook: PQCodebook, codes: torch.Tensor) -> PQCodebook:
     """Recompute counts from a full code table (determine_counts parity)."""
     return PQCodebook(codebook.centroids,
                       _counts(codes, codebook.centroids.shape[1]))
+
+
+def online_codebook_update(codebook: PQCodebook, new_vectors: torch.Tensor
+                           ) -> tuple[PQCodebook, torch.Tensor]:
+    """Sequential running-mean update for a batch of inserted vectors →
+    (updated codebook, ``(n_new, m)`` int32 codes).
+
+    For each vector in turn, per subspace: assign the nearest centroid,
+    ``count += 1``, ``c += (x − c)/count`` — the reference's incremental
+    k-means (index_utils.c:908-957). Each row sees the updates of the rows
+    before it, so this is a loop over the rows, not a batched op (the JAX
+    package's ``online_codebook_update``, a ``lax.scan``, pq.py:80-108).
+    The caller's codebook is not modified."""
+    m, k, dsub = codebook.centroids.shape
+    cents = codebook.centroids.float().clone()
+    counts = codebook.counts.to(torch.int32).clone()
+    xs = new_vectors.float().reshape(-1, m, dsub)
+    codes = torch.empty(xs.shape[0], m, dtype=torch.int32, device=xs.device)
+    sub = torch.arange(m, device=xs.device)
+    one = torch.ones((), device=xs.device)
+    for i in range(xs.shape[0]):
+        x = xs[i]                                            # (m, dsub)
+        code = torch.argmin(torch.sum((x[:, None, :] - cents) ** 2, dim=-1),
+                            dim=-1)                          # (m,)
+        counts[sub, code] += 1
+        inv = one / counts[sub, code].float()
+        c = cents[sub, code]
+        cents[sub, code] = c + inv[:, None] * (x - c)
+        codes[i] = code
+    return PQCodebook(cents, counts), codes
 
 
 def reconstruct(codes: torch.Tensor, codebooks: torch.Tensor
@@ -224,33 +256,39 @@ class PQIndex:
                                        rotation=self.rotation)
 
     # ------------------------------------------------------------- search
+    _IMPLS = ("kernel", "kernel_binned", "kernel_int8",
+              "kernel_binned_int8", "plain")
+
     def _resolve_impl(self, impl: str | None) -> str:
         """``None`` → "kernel" on a CUDA device, "plain" on the CPU."""
         if impl is None:
             return "kernel" if self.codes.is_cuda else "plain"
-        if impl == "kernel_int8":
-            raise NotImplementedError(
-                "int8 LUTs (kernels K3/K5) arrive with ROADMAP.md queue 2, "
-                "K3 and K5")
-        if impl not in ("kernel", "kernel_binned", "plain"):
-            raise ValueError(f"impl must be kernel|kernel_binned|plain, "
+        if impl not in self._IMPLS:
+            raise ValueError(f"impl must be one of {'|'.join(self._IMPLS)}, "
                              f"got {impl!r}")
         return impl
 
     def _search_plan(self, n_queries: int, approx: bool,
                      impl: str | None) -> tuple[str, torch.Tensor, int]:
-        """Resolve (mode, codes-arg, valid_n) for a search.
+        """Resolve (mode, codes-arg, valid_n) for a search (the JAX
+        ``_search_plan``, pq.py:441-474).
 
         "binned" (K4) for approx requests on the kernel path and for
         dense buffers past the 6 GiB bar; "dense" (K2) for exact kernel
-        requests; "plain" (chunked gather) otherwise."""
+        requests; "plain" (chunked gather) otherwise. An ``_int8`` impl
+        suffix selects the int8-LUT twins "dense_i8" (K3) and "binned_i8"
+        (K5). "kernel_int8" is a LUT dtype preference (the engine's
+        ``pq_lut_dtype`` knob), not an exactness demand: past the bar it
+        degrades to "binned_i8" with a warning, where "kernel" raises."""
         impl_requested = impl
         impl = self._resolve_impl(impl)
         if impl == "plain":
             return "plain", self.codes, self.size
+        sfx = "_i8" if impl.endswith("_int8") else ""
+        base = impl.removesuffix("_int8")
         ct = self.transposed_codes()
-        if impl == "kernel_binned" or approx:
-            return "binned", ct, self.size
+        if base == "kernel_binned" or approx:
+            return "binned" + sfx, ct, self.size
         dense_bytes = n_queries * ct.shape[1] * 4
         if dense_bytes > self._DENSE_SCAN_BYTES:
             # Past the bar only the binned kernel can run, and its results
@@ -268,20 +306,23 @@ class PQIndex:
                 "approximate binned kernel. Pass impl='kernel_binned' to "
                 "silence, or chunk queries for exact results.",
                 stacklevel=3)
-            return "binned", ct, self.size
-        return "dense", ct, self.size
+            return "binned" + sfx, ct, self.size
+        return "dense" + sfx, ct, self.size
 
     def _scan_top_k(self, queries: torch.Tensor, k: int, mode: str,
                     codes_arg: torch.Tensor, valid_n: int
                     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Rotation → LUTs → scan → top-k."""
         luts = lut.build_luts(self._rotate(queries), self.codebook.centroids)
-        if mode == "binned":
+        lut_dtype = "int8" if mode.endswith("_i8") else "bf16"
+        if mode.startswith("binned"):
             return kernels.adc_top_k_binned(luts, codes_arg, k,
                                             valid_n=valid_n,
-                                            block_n=self._BLOCK_N)
-        if mode == "dense":
-            return kernels.adc_top_k(luts, codes_arg, k, valid_n=valid_n)
+                                            block_n=self._BLOCK_N,
+                                            lut_dtype=lut_dtype)
+        if mode.startswith("dense"):
+            return kernels.adc_top_k(luts, codes_arg, k, valid_n=valid_n,
+                                     lut_dtype=lut_dtype)
         return adc.adc_top_k(luts, codes_arg, k)
 
     def search(self, queries: torch.Tensor, k: int, *, approx: bool = False,
@@ -290,8 +331,10 @@ class PQIndex:
         """Exhaustive ADC top-k (``pq_search`` parity) → (sqdists, ids).
 
         ``impl``: "kernel" (dense scan K2), "kernel_binned" (binned scan
-        K4 — bin survivors, approximate), "plain" (chunked gather), or None
-        for "kernel" on a CUDA device and "plain" on the CPU."""
+        K4 — bin survivors, approximate), "kernel_int8" /
+        "kernel_binned_int8" (the same over per-query int8 LUTs, K3 / K5),
+        "plain" (chunked gather), or None for "kernel" on a CUDA device and
+        "plain" on the CPU."""
         mode, codes_arg, valid_n = self._search_plan(queries.shape[0],
                                                      approx, impl)
         return self._scan_top_k(queries, k, mode, codes_arg, valid_n)
@@ -318,8 +361,16 @@ class PQIndex:
     def search_in(self, queries, k, target_ids, target_mask=None):
         raise NotImplementedError(f"PQIndex.search_in {_NOT_YET}")
 
-    def add(self, new_vectors):
-        raise NotImplementedError(f"PQIndex.add {_NOT_YET}")
+    def add(self, new_vectors: torch.Tensor) -> "PQIndex":
+        """Online insert: running-mean codebook update in the index's (OPQ)
+        basis + appended codes (``insert_batch``'s PQ leg,
+        freddy.c:1616-1629). Returns a new index; its transposed code table
+        is built anew on the next kernel search, so the new rows are
+        scanned."""
+        cb, new_codes = online_codebook_update(self.codebook,
+                                               self._rotate(new_vectors))
+        codes = torch.cat([self.codes, new_codes.to(self.codes.dtype)])
+        return PQIndex(cb, codes, rotation=self.rotation)
 
     # --------------------------------------------------------- persistence
     def save(self, path: str | Path) -> None:

@@ -20,14 +20,21 @@ from postgres_word2vec_tpu_torch.ops.vector_ops import no_tf32
 _GATHER_ELEMS = 1 << 26
 
 
+def _sum_dtype(luts: torch.Tensor) -> torch.dtype:
+    """int8 LUTs sum exactly in int32; every other LUT sums in float32."""
+    return torch.int32 if luts.dtype == torch.int8 else torch.float32
+
+
 def adc_distances(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
-    """Dense ADC distances: ``(B, m, k) × (n, m) → (B, n)`` float32.
+    """Dense ADC distances: ``(B, m, k) × (n, m) → (B, n)`` float32, or
+    exact int32 sums for int8 LUTs (the caller applies their scale).
 
     ``out[b, i] = Σ_j luts[b, j, codes[i, j]]``, summed over j in order
     (freddy.c:128: ``distance += querySimilarities[j*k + codes[j]]``)."""
-    lf = luts.float()
+    dt = _sum_dtype(luts)
+    lf = luts.to(dt)
     c = codes.long()
-    out = torch.zeros(luts.shape[0], codes.shape[0], dtype=torch.float32,
+    out = torch.zeros(luts.shape[0], codes.shape[0], dtype=dt,
                       device=luts.device)
     for j in range(codes.shape[1]):
         out += lf[:, j].index_select(1, c[:, j])
@@ -37,12 +44,12 @@ def adc_distances(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
 def adc_distances_per_query(luts: torch.Tensor, codes: torch.Tensor
                             ) -> torch.Tensor:
     """ADC where every query has its own candidate rows:
-    ``(B, m, k) × (B, T, m) → (B, T)`` float32,
+    ``(B, m, k) × (B, T, m) → (B, T)`` float32 (int32 for int8 LUTs),
     ``out[b, t] = Σ_j luts[b, j, codes[b, t, j]]`` summed over j in order —
     the per-query gather of the probe paths."""
-    lf = luts.float()
-    out = torch.zeros(codes.shape[:2], dtype=torch.float32,
-                      device=luts.device)
+    dt = _sum_dtype(luts)
+    lf = luts.to(dt)
+    out = torch.zeros(codes.shape[:2], dtype=dt, device=luts.device)
     for j in range(codes.shape[2]):
         out += torch.gather(lf[:, j], 1, codes[:, :, j].long())
     return out
@@ -63,10 +70,14 @@ def _query_chunk(per_query: int) -> int:
 
 def budget_adc_xla(luts: torch.Tensor, codes_aligned: torch.Tensor,
                    rowterm: torch.Tensor, tiles: torch.Tensor, *,
-                   block_t: int) -> torch.Tensor:
+                   block_t: int, scale: torch.Tensor | None = None
+                   ) -> torch.Tensor:
     """Budgeted tile-gather ADC → ``(B, P·block_t)`` float32: per query,
     the lut-sum of its P tiles of ``block_t`` cell-aligned code rows plus
     ``rowterm`` (+inf marks pad rows and the inf tile, and stays +inf).
+    int8 LUTs come with their per-query ``scale`` (B,): the exact int32
+    sum is multiplied by it, then the row term is added, each rounded on
+    its own.
 
     ``codes_aligned`` is row-major ``(NA, m)`` (a transposed view of the
     kernels' ``(m, NA)`` table works as well). Queries run in chunks so the
@@ -79,8 +90,10 @@ def budget_adc_xla(luts: torch.Tensor, codes_aligned: torch.Tensor,
     for s in range(0, B, step):
         pos = tile_positions(tiles[s:s + step], block_t)
         cand = codes_aligned[pos.reshape(-1)].reshape(*pos.shape, -1)
-        out[s:s + step] = (adc_distances_per_query(luts[s:s + step], cand)
-                           + rowterm[pos])
+        d = adc_distances_per_query(luts[s:s + step], cand)
+        if scale is not None:
+            d = d.float() * scale[s:s + step, None]
+        out[s:s + step] = d + rowterm[pos]
     return out
 
 

@@ -1,19 +1,25 @@
 """The search paths' scan and probe kernels for Hopper, their wrappers and
 their plain PyTorch versions.
 
-Counterpart of ``postgres_word2vec_tpu/ops/pallas_kernels.py`` for slices
-1 and 2 of the port. Seven kernels, written in CUDA C++ for ``sm_90a``
-(sources in ``csrc/``, built by ``ops/_build.py``):
+Counterpart of ``postgres_word2vec_tpu/ops/pallas_kernels.py``. Ten
+kernels, written in CUDA C++ for ``sm_90a`` (sources in ``csrc/``, built by
+``ops/_build.py``):
 
 - K1 :func:`fused_exact_scan` — brute-force bf16 scan fused with a
   strided-bin min/argmin (``csrc/fused_exact_scan.cu``);
 - K2 :func:`adc_scan` — dense ADC distances (``csrc/adc_scan.cu``);
+- K3 :func:`adc_scan_int8` — the same over int8 LUTs
+  (``csrc/adc_scan_int8.cu``);
 - K4 :func:`adc_scan_binned` — ADC fused with a strided-bin min/argmin
   (``csrc/adc_scan_binned.cu``);
+- K5 :func:`adc_scan_binned_int8` — its int8 twin, an exact packed key
+  (``csrc/adc_scan_binned_int8.cu``);
 - K6 :func:`budget_adc` — budgeted tile-gather ADC, one query per block
   (``csrc/budget_adc.cu``), the IVFADC probe and the sparse join;
 - K7 :func:`budget_adc_grouped` — the same contract with the (query,
   tile) pairs grouped by tile (``csrc/budget_adc_grouped.cu``);
+- K8 :func:`budget_adc_grouped_int8` — K7 over int8 LUTs
+  (``csrc/budget_adc_grouped_int8.cu``);
 - K9 :func:`budget_exact` — budgeted tile-gather exact scores
   (``csrc/budget_exact.cu``), the join's ``method=1``;
 - K10 :func:`budget_exact_grouped` — its tile-grouped twin
@@ -22,6 +28,14 @@ Counterpart of ``postgres_word2vec_tpu/ops/pallas_kernels.py`` for slices
 :func:`budget_adc_auto` / :func:`budget_exact_auto` choose between the
 per-query and grouped kernels with the JAX package's rule
 (``_grouped_wins``, ``GROUPED_ROWS_DEFAULT``), carried over unchanged.
+
+int8 LUTs (``lut_dtype="int8"`` on :func:`adc_scan`, :func:`adc_top_k`,
+:func:`adc_scan_binned`, :func:`adc_top_k_binned`,
+:func:`budget_adc_grouped` and :func:`budget_adc_auto`) are quantized in
+the torch glue by :func:`quantize_luts_int8` — one max-abs scale per
+query, the JAX package's ``_quantize_luts_int8`` — and summed exactly in
+int32; the float32 scale is applied once. ``"bf16"`` names the float path,
+as in the JAX package; the port keeps those LUTs in float32.
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything
 the kernel does not take; it runs the plain version (``*_plain``, same
@@ -39,6 +53,7 @@ holds rows ``{j, j+bins, j+2·bins, …}`` and a survivor's global id is
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import torch
 import torch.nn.functional as F
@@ -49,9 +64,6 @@ from postgres_word2vec_tpu_torch.ops.vector_ops import no_tf32, row_sqnorms
 
 _PALLAS = "postgres_word2vec_tpu/ops/pallas_kernels.py"
 _CSRC = "postgres_word2vec_tpu_torch/csrc"
-
-#: The ROADMAP item that brings int8 LUTs to the card.
-INT8_LUT_ITEM = "ROADMAP.md queue 2, kernels K3, K5 and K8 (int8 LUTs)"
 
 
 @dataclasses.dataclass
@@ -82,10 +94,21 @@ KERNELS: dict[str, Kernel] = {
     "budget_exact_grouped": Kernel("budget_exact_grouped",
                                    f"{_CSRC}/budget_exact_grouped.cu",
                                    f"{_PALLAS}:818"),
+    "adc_scan_int8": Kernel("adc_scan_int8", f"{_CSRC}/adc_scan_int8.cu",
+                            f"{_PALLAS}:109"),
+    "adc_scan_binned_int8": Kernel("adc_scan_binned_int8",
+                                   f"{_CSRC}/adc_scan_binned_int8.cu",
+                                   f"{_PALLAS}:262"),
+    "budget_adc_grouped_int8": Kernel("budget_adc_grouped_int8",
+                                      f"{_CSRC}/budget_adc_grouped_int8.cu",
+                                      f"{_PALLAS}:721"),
 }
 
-#: One query's float32 LUT must fit in a block's shared memory (227 KB).
+#: One query's float32 LUT, or four queries' int8 LUTs, must fit in a
+#: block's shared memory (227 KB).
 _MAX_LUT_BYTES = 227 * 1024
+
+LUT_DTYPES = ("bf16", "int8")
 
 
 def reset_launch_counts() -> None:
@@ -137,10 +160,12 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _check_adc_inputs(luts: torch.Tensor, codes_t: torch.Tensor) -> None:
-    _require(luts.dim() == 3 and luts.dtype == torch.float32
-             and luts.is_contiguous(),
-             f"luts must be contiguous float32 (B, m, k), got "
+def _check_adc_inputs(luts: torch.Tensor, codes_t: torch.Tensor,
+                      scale: torch.Tensor | None = None) -> None:
+    """Float32 LUTs, or int8 LUTs with their (B,) float32 ``scale``."""
+    dt = torch.float32 if scale is None else torch.int8
+    _require(luts.dim() == 3 and luts.dtype == dt and luts.is_contiguous(),
+             f"luts must be contiguous {dt} (B, m, k), got "
              f"{luts.dtype} {tuple(luts.shape)}")
     B, m, k = luts.shape
     _require(codes_t.dim() == 2 and codes_t.shape[0] == m
@@ -150,7 +175,37 @@ def _check_adc_inputs(luts: torch.Tensor, codes_t: torch.Tensor) -> None:
              f"{codes_t.dtype} {tuple(codes_t.shape)}")
     _require(B >= 1 and codes_t.shape[1] >= 1, "empty query batch or table")
     _require(m * k * 4 <= _MAX_LUT_BYTES,
-             f"one query's LUT ({m}×{k} float32) exceeds shared memory")
+             f"one query's float32 LUT or four int8 LUTs ({m}×{k}) exceed "
+             f"shared memory")
+    if scale is not None:
+        _require(scale.shape == (B,) and scale.dtype == torch.float32
+                 and scale.is_contiguous(),
+                 f"scale must be contiguous float32 ({B},), got "
+                 f"{scale.dtype} {tuple(scale.shape)}")
+
+
+def _check_lut_dtype(lut_dtype: str) -> None:
+    if lut_dtype not in LUT_DTYPES:
+        raise ValueError(f"lut_dtype must be 'bf16' or 'int8', "
+                         f"got {lut_dtype!r}")
+
+
+def quantize_luts_int8(luts: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-query symmetric int8 quantization of ADC LUTs → (int8 LUTs in
+    [−127, 127], float32 scale (B,)) with ``dist ≈ int_sum · scale``.
+
+    One global max-abs scale per query over all m·k entries, so every
+    subspace's lookup shares it and the whole ADC sum accumulates exactly
+    in int32 before one float32 rescale. ``round`` rounds half to even.
+    The JAX package's ``_quantize_luts_int8`` (pallas_kernels.py:68-88):
+    the same float32 LUTs give the same int8 tables."""
+    lf = luts.float()
+    s = torch.clamp_min(torch.amax(torch.abs(lf), dim=(1, 2)), 1e-20)
+    # a true division: ``127.0 / s`` would multiply by a rounded reciprocal
+    inv = torch.full_like(s, 127.0) / s
+    q = torch.clamp(torch.round(lf * inv[:, None, None]), -127, 127)
+    return q.to(torch.int8), s / 127.0
 
 
 def _bin_min(dist: torch.Tensor, block_n: int, bins: int, base: int = 0
@@ -174,19 +229,28 @@ def _bin_min(dist: torch.Tensor, block_n: int, bins: int, base: int = 0
 
 # ------------------------------------------------------ K2: dense ADC scan
 
-def adc_scan_plain(luts: torch.Tensor, codes_t: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`adc_scan`: ``(B, m, k) × (m, N) → (B, N)``
-    float32, summed over subspaces in order (``adc.adc_distances``)."""
-    return adc.adc_distances(luts, codes_t.t())
+def adc_scan_plain(luts: torch.Tensor, codes_t: torch.Tensor, *,
+                   scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of :func:`adc_scan` and :func:`adc_scan_int8`:
+    ``(B, m, k) × (m, N) → (B, N)`` float32, summed over subspaces in
+    order (``adc.adc_distances``). int8 LUTs with their ``scale`` sum
+    exactly in int32, then multiply once by the query's scale."""
+    d = adc.adc_distances(luts, codes_t.t())
+    return d if scale is None else d.float() * scale[:, None]
 
 
-def adc_scan(luts: torch.Tensor, codes_t: torch.Tensor) -> torch.Tensor:
+def adc_scan(luts: torch.Tensor, codes_t: torch.Tensor, *,
+             lut_dtype: str = "bf16") -> torch.Tensor:
     """Dense ADC distances ``(B, m, k) × (m, N) → (B, N)`` float32.
 
     ``codes_t`` is the subspace-major code table in its storage dtype
     (uint8 for k ≤ 256, else int16), any N: the kernel masks the ragged
-    edge. Codes must lie in ``[0, k)``. LUTs stay float32.
+    edge. Codes must lie in ``[0, k)``. ``lut_dtype="bf16"`` keeps the
+    LUTs float32 (K2); ``"int8"`` quantizes them per query and runs K3.
     """
+    _check_lut_dtype(lut_dtype)
+    if lut_dtype == "int8":
+        return adc_scan_int8(*quantize_luts_int8(luts), codes_t)
     if not _on_cuda(luts, codes_t):
         return adc_scan_plain(luts, codes_t)
     _check_adc_inputs(luts, codes_t)
@@ -198,12 +262,31 @@ def adc_scan(luts: torch.Tensor, codes_t: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def adc_scan_int8(luts: torch.Tensor, scale: torch.Tensor,
+                  codes_t: torch.Tensor) -> torch.Tensor:
+    """Dense ADC over int8 LUTs (K3): ``(B, m, k)`` int8 LUTs with their
+    ``(B,)`` float32 scale (:func:`quantize_luts_int8`) × ``(m, N)`` codes
+    → ``(B, N)`` float32, ``float(Σ_j lut) · scale``; the int32 sum is
+    exact and the result equals the plain version's bit for bit."""
+    if not _on_cuda(luts, scale, codes_t):
+        return adc_scan_plain(luts, codes_t, scale=scale)
+    _check_adc_inputs(luts, codes_t, scale)
+    B, m, k = luts.shape
+    n = codes_t.shape[1]
+    out = torch.empty(B, n, dtype=torch.float32, device=luts.device)
+    _launch("adc_scan_int8", "pw2v_adc_scan_int8", luts.data_ptr(),
+            scale.data_ptr(), codes_t.data_ptr(), codes_t.element_size(),
+            out.data_ptr(), B, m, k, n, _stream())
+    return out
+
+
 def adc_top_k(luts: torch.Tensor, codes_t: torch.Tensor, k: int, *,
-              valid_n: int | None = None
+              valid_n: int | None = None, lut_dtype: str = "bf16"
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exhaustive ADC top-k through the dense scan → (dists, int64 ids).
-    ``valid_n`` masks columns at or past it. The top-k is exact."""
-    dists = adc_scan(luts, codes_t)
+    """Exhaustive ADC top-k through the dense scan (K2, or K3 for
+    ``lut_dtype="int8"``) → (dists, int64 ids). ``valid_n`` masks columns
+    at or past it. The top-k is exact."""
+    dists = adc_scan(luts, codes_t, lut_dtype=lut_dtype)
     n = dists.shape[1]
     if valid_n is not None and valid_n < n:
         dists[:, valid_n:] = float("inf")
@@ -212,24 +295,68 @@ def adc_top_k(luts: torch.Tensor, codes_t: torch.Tensor, k: int, *,
 
 # ------------------------------------------------- K4: binned ADC scan
 
+#: K5's key of a bin with no row (INT32_MAX).
+_KEY_EMPTY = 2**31 - 1
+
+
+def _key_shift(block_n: int, bins: int) -> int:
+    """Width of K5's sub-index field: log2 of ``block_n/bins`` rounded up
+    to a power of two (the JAX package's ``sub_pow``)."""
+    return (block_n // bins - 1).bit_length()
+
+
+def _bin_min_int8(sums: torch.Tensor, scale: torch.Tensor, block_n: int,
+                  bins: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5's strided-bin reduction of exact int32 sums ``(B, n)``: per bin
+    the min of the packed key ``sum·2^shift + s`` (a tie takes the lowest
+    sub-index), → (``float(key >> shift) · scale``, global ids int32); a
+    bin with no row below ``n`` is +inf with id −1."""
+    B, n = sums.shape
+    shift = _key_shift(block_n, bins)
+    n_tiles = -(-n // block_n)
+    sub_idx = (torch.arange(n, device=sums.device) % block_n) // bins
+    key = sums.to(torch.int32) * (1 << shift) + sub_idx.to(torch.int32)
+    key = F.pad(key, (0, n_tiles * block_n - n), value=_KEY_EMPTY)
+    best = torch.amin(key.reshape(B, n_tiles, block_n // bins, bins), dim=2)
+    empty = best == _KEY_EMPTY
+    mins = (best >> shift).float() * scale[:, None, None]
+    tile = torch.arange(n_tiles, device=sums.device)[:, None]
+    j = torch.arange(bins, device=sums.device)[None, :]
+    ids = tile * block_n + (best & ((1 << shift) - 1)) * bins + j
+    mins = torch.where(empty, float("inf"), mins)
+    ids = torch.where(empty, -1, ids)
+    return mins.reshape(B, -1), ids.reshape(B, -1).to(torch.int32)
+
+
 def adc_scan_binned_plain(luts: torch.Tensor, codes_t: torch.Tensor, *,
-                          block_n: int = 2048, bins: int = 128
+                          block_n: int = 2048, bins: int = 128,
+                          scale: torch.Tensor | None = None
                           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of :func:`adc_scan_binned`: the dense plain scan,
-    then the strided-bin min/argmin."""
-    return _bin_min(adc_scan_plain(luts, codes_t), block_n, bins)
+    """Plain version of :func:`adc_scan_binned` and
+    :func:`adc_scan_binned_int8`: the dense plain scan, then the
+    strided-bin min/argmin (for int8 LUTs with their ``scale``, K5's
+    packed-key reduction of the exact int32 sums)."""
+    if scale is None:
+        return _bin_min(adc_scan_plain(luts, codes_t), block_n, bins)
+    return _bin_min_int8(adc.adc_distances(luts, codes_t.t()), scale,
+                         block_n, bins)
 
 
 def adc_scan_binned(luts: torch.Tensor, codes_t: torch.Tensor, *,
-                    block_n: int = 2048, bins: int = 128
+                    block_n: int = 2048, bins: int = 128,
+                    lut_dtype: str = "bf16"
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Binned ADC scan → (mins (B, n_tiles·bins) float32, global ids
     int32), ``n_tiles = ⌈N / block_n⌉``. One survivor per strided bin, so
     the (B, N) distance matrix never reaches device memory. Rows at or past
     N count as +inf; a bin without a valid row holds +inf and its first
-    row's id."""
+    row's id (K4), or id −1 for ``lut_dtype="int8"`` (K5)."""
     _require(bins >= 1 and block_n % bins == 0,
              f"block_n={block_n} must be a multiple of bins={bins}")
+    _check_lut_dtype(lut_dtype)
+    if lut_dtype == "int8":
+        return adc_scan_binned_int8(*quantize_luts_int8(luts), codes_t,
+                                    block_n=block_n, bins=bins)
     if not _on_cuda(luts, codes_t):
         return adc_scan_binned_plain(luts, codes_t, block_n=block_n,
                                      bins=bins)
@@ -245,6 +372,35 @@ def adc_scan_binned(luts: torch.Tensor, codes_t: torch.Tensor, *,
     return mins, ids
 
 
+def adc_scan_binned_int8(luts: torch.Tensor, scale: torch.Tensor,
+                         codes_t: torch.Tensor, *, block_n: int = 2048,
+                         bins: int = 128
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Binned ADC over int8 LUTs (K5) → (mins (B, n_tiles·bins) float32,
+    global ids int32): per strided bin the min of the exact packed key
+    ``int_sum·2^shift + s`` (a tie takes the lowest row id), scaled by the
+    query's ``scale``. Rows at or past N are masked; a bin without one is
+    +inf with id −1. Equal to the plain version bit for bit."""
+    _require(bins >= 1 and block_n % bins == 0,
+             f"block_n={block_n} must be a multiple of bins={bins}")
+    _require((luts.shape[1] * 127 + 1) << _key_shift(block_n, bins)
+             < _KEY_EMPTY, "the packed int8 key would overflow int32")
+    if not _on_cuda(luts, scale, codes_t):
+        return adc_scan_binned_plain(luts, codes_t, block_n=block_n,
+                                     bins=bins, scale=scale)
+    _check_adc_inputs(luts, codes_t, scale)
+    B, m, k = luts.shape
+    n = codes_t.shape[1]
+    width = -(-n // block_n) * bins
+    mins = torch.empty(B, width, dtype=torch.float32, device=luts.device)
+    ids = torch.empty(B, width, dtype=torch.int32, device=luts.device)
+    _launch("adc_scan_binned_int8", "pw2v_adc_scan_binned_int8",
+            luts.data_ptr(), scale.data_ptr(), codes_t.data_ptr(),
+            codes_t.element_size(), mins.data_ptr(), ids.data_ptr(), B, m, k,
+            n, block_n, bins, _stream())
+    return mins, ids
+
+
 def verify_binned(mins: torch.Tensor, ids: torch.Tensor,
                   ref_mins: torch.Tensor, score_at, *, block_n: int,
                   bins: int, valid_n: int, atol: float) -> float:
@@ -255,7 +411,7 @@ def verify_binned(mins: torch.Tensor, ids: torch.Tensor,
     - the +inf slots match ``ref_mins`` and the finite mins agree with it
       within ``atol``;
     - every id lies in its own bin: tile ``col // bins``, position
-      ``col % bins`` within its stride;
+      ``col % bins`` within its stride (an empty +inf bin may carry −1);
     - every finite slot's id is a valid row whose score equals the min
       within ``atol``.
 
@@ -268,12 +424,13 @@ def verify_binned(mins: torch.Tensor, ids: torch.Tensor,
     _require(err <= atol, f"bin mins differ by {err:.3g} > {atol}")
     col = torch.arange(mins.shape[1], device=ids.device)
     idl = ids.long()
-    _require(bool(torch.all(idl // block_n == (col // bins)[None])
-                  & torch.all((idl % block_n) % bins == (col % bins)[None])),
+    in_bin = ((idl // block_n == (col // bins)[None])
+              & ((idl % block_n) % bins == (col % bins)[None]))
+    _require(bool(torch.all(in_bin | ((idl == -1) & ~fin))),
              "an id lies outside its bin")
-    _require(bool(torch.all(idl[fin] < valid_n)),
+    _require(bool(torch.all((idl[fin] >= 0) & (idl[fin] < valid_n))),
              "a finite slot points past the table")
-    at = score_at(torch.clamp(idl, max=valid_n - 1))
+    at = score_at(torch.clamp(idl, 0, valid_n - 1))
     gap = float((at - mins)[fin].abs().max()) if fin.any() else 0.0
     _require(gap <= atol,
              f"an id's score is {gap:.3g} away from its bin min (> {atol})")
@@ -296,14 +453,15 @@ def _top_k_survivors(mins: torch.Tensor, ids: torch.Tensor, k: int
 
 def adc_top_k_binned(luts: torch.Tensor, codes_t: torch.Tensor, k: int, *,
                      valid_n: int | None = None, block_n: int = 2048,
-                     bins: int = 128
+                     bins: int = 128, lut_dtype: str = "bf16"
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Memory-lean exhaustive ADC top-k through the binned scan →
-    (dists, int64 ids). Candidates are per-bin minima (one survivor per
-    bin; the global minimum always survives), then an exact top-k over
-    them. Survivors with id ≥ ``valid_n`` are dropped; +inf slots carry
-    id −1."""
-    mins, ids = adc_scan_binned(luts, codes_t, block_n=block_n, bins=bins)
+    """Memory-lean exhaustive ADC top-k through the binned scan (K4, or K5
+    for ``lut_dtype="int8"``) → (dists, int64 ids). Candidates are per-bin
+    minima (one survivor per bin; the global minimum always survives),
+    then an exact top-k over them. Survivors with id ≥ ``valid_n`` are
+    dropped; +inf slots carry id −1."""
+    mins, ids = adc_scan_binned(luts, codes_t, block_n=block_n, bins=bins,
+                                lut_dtype=lut_dtype)
     if valid_n is not None:
         mins = torch.where(ids < valid_n, mins,
                            torch.full_like(mins, float("inf")))
@@ -514,12 +672,16 @@ def _check_budget(table_rows: int, block_t: int, tiles: torch.Tensor,
 
 def budget_adc_plain(luts: torch.Tensor, codes_t: torch.Tensor,
                      rowterm: torch.Tensor, tiles: torch.Tensor, *,
-                     block_t: int) -> torch.Tensor:
-    """Plain version of :func:`budget_adc` (``adc.budget_adc_xla`` on the
+                     block_t: int, scale: torch.Tensor | None = None
+                     ) -> torch.Tensor:
+    """Plain version of :func:`budget_adc`, :func:`budget_adc_grouped` and
+    :func:`budget_adc_grouped_int8` (``adc.budget_adc_xla`` on the
     transposed code table): LUT sums over subspaces in order, then the row
-    term — the kernel's order, so float32 results agree bit for bit."""
+    term — the kernels' order, so float32 results agree bit for bit. int8
+    LUTs with their ``scale``: the exact int32 sum times the scale, then
+    the row term, each rounded on its own as in K8."""
     return adc.budget_adc_xla(luts, codes_t.t(), rowterm, tiles,
-                              block_t=block_t)
+                              block_t=block_t, scale=scale)
 
 
 def budget_adc(luts: torch.Tensor, codes_t: torch.Tensor,
@@ -551,12 +713,19 @@ def budget_adc(luts: torch.Tensor, codes_t: torch.Tensor,
 
 def budget_adc_grouped(luts: torch.Tensor, codes_t: torch.Tensor,
                        rowterm: torch.Tensor, tiles: torch.Tensor, *,
-                       block_t: int, rows: int = 8) -> torch.Tensor:
+                       block_t: int, rows: int = 8,
+                       lut_dtype: str = "bf16") -> torch.Tensor:
     """Tile-grouped budgeted ADC (K7), :func:`budget_adc`'s contract: the
     (query, slot) pairs are sorted by tile (:func:`_group_probe_layout`,
     torch glue), ``rows`` queries per block share one code tile, and one
-    row gather reassembles ``(B, P·block_t)``. CPU tensors take
+    row gather reassembles ``(B, P·block_t)``. ``lut_dtype="int8"``
+    quantizes the LUTs per query and runs K8. CPU tensors take
     :func:`budget_adc_plain`."""
+    _check_lut_dtype(lut_dtype)
+    if lut_dtype == "int8":
+        return budget_adc_grouped_int8(*quantize_luts_int8(luts), codes_t,
+                                       rowterm, tiles, block_t=block_t,
+                                       rows=rows)
     if not _on_cuda(luts, codes_t, rowterm, tiles):
         return budget_adc_plain(luts, codes_t, rowterm, tiles,
                                 block_t=block_t)
@@ -576,26 +745,60 @@ def budget_adc_grouped(luts: torch.Tensor, codes_t: torch.Tensor,
     return _reassemble(out, row, t)
 
 
+# K8 -------------------------------------------------------------------------
+
+def budget_adc_grouped_int8(luts: torch.Tensor, scale: torch.Tensor,
+                            codes_t: torch.Tensor, rowterm: torch.Tensor,
+                            tiles: torch.Tensor, *, block_t: int,
+                            rows: int = 8) -> torch.Tensor:
+    """Tile-grouped budgeted ADC over int8 LUTs (K8): K7's grouping glue
+    and contract, ``float(Σ_j lut) · scale + rowterm`` with the per-query
+    ``scale`` of :func:`quantize_luts_int8`. CPU tensors take
+    :func:`budget_adc_plain` with the same int8 LUTs."""
+    if not _on_cuda(luts, scale, codes_t, rowterm, tiles):
+        return budget_adc_plain(luts, codes_t, rowterm, tiles,
+                                block_t=block_t, scale=scale)
+    _check_adc_inputs(luts, codes_t, scale)
+    B, m, k = luts.shape
+    na = codes_t.shape[1]
+    t = _check_budget(na, block_t, tiles, B, rowterm)
+    _require(rows >= 1, f"rows must be ≥ 1, got {rows}")
+    qidx, tog, row = _grouped_layout(t, na // block_t, rows)
+    groups = tog.shape[0]
+    out = torch.empty(groups * rows, block_t, dtype=torch.float32,
+                      device=luts.device)
+    _launch("budget_adc_grouped_int8", "pw2v_budget_adc_grouped_int8",
+            luts.data_ptr(), scale.data_ptr(), codes_t.data_ptr(),
+            codes_t.element_size(), rowterm.data_ptr(), qidx.data_ptr(),
+            tog.data_ptr(), out.data_ptr(), B, m, k, na, groups, rows,
+            block_t, _stream())
+    return _reassemble(out, row, t)
+
+
 def budget_adc_auto(luts: torch.Tensor, codes_t: torch.Tensor,
                     rowterm: torch.Tensor, tiles: torch.Tensor, *,
                     block_t: int, rows: int | None = None,
                     lut_dtype: str = "bf16") -> torch.Tensor:
-    """Grouped (K7) for probe sets over few tiles (the join regime),
-    per-query (K6) otherwise — the JAX ``budget_adc_auto`` rule.
-    ``lut_dtype="int8"`` needs K8: it raises on the card and is ignored by
-    the plain versions, as the JAX package's plain twin ignores it."""
-    if lut_dtype not in ("bf16", "int8"):
-        raise ValueError(f"lut_dtype must be 'bf16' or 'int8', "
-                         f"got {lut_dtype!r}")
-    if lut_dtype == "int8" and luts.is_cuda:
-        raise NotImplementedError(f"lut_dtype='int8': {INT8_LUT_ITEM}")
+    """Grouped (K7, or K8 for ``lut_dtype="int8"``) for probe sets over few
+    tiles (the join regime), per-query (K6) otherwise — the JAX
+    ``budget_adc_auto`` rule. The per-query kernel has no int8 twin, as
+    in the JAX package: an int8 request that lands there warns and runs
+    K6 on float32 LUTs."""
+    _check_lut_dtype(lut_dtype)
     rows = GROUPED_ROWS_DEFAULT if rows is None else rows
     B, m, k = luts.shape
     slot_bytes = m * k * (1 if lut_dtype == "int8" else 2)
     if _grouped_wins(B * tiles.shape[1], codes_t.shape[1] // block_t, rows,
                      slot_bytes):
         return budget_adc_grouped(luts, codes_t, rowterm, tiles,
-                                  block_t=block_t, rows=rows)
+                                  block_t=block_t, rows=rows,
+                                  lut_dtype=lut_dtype)
+    if lut_dtype == "int8":
+        warnings.warn(
+            "budget_adc_auto: probe shape selects the per-query kernel, "
+            "which has no int8 variant — running float32 LUTs. (Sparse "
+            "probes or an expanded-LUT copy past the memory guard.)",
+            stacklevel=2)
     return budget_adc(luts, codes_t, rowterm, tiles, block_t=block_t)
 
 

@@ -103,6 +103,50 @@ class VectorStore:
         table = self.vectors_norm if normalized else self.vectors
         return table.index_select(0, ids)
 
+    # ------------------------------------------------------------ mutation
+    def _check_new(self, words: Sequence[str]) -> None:
+        for w in words:
+            if w in self.word_to_id:
+                raise ValueError(f"word already present: {w!r}")
+
+    def extend(self, words: Sequence[str], vectors) -> "VectorStore":
+        """Append new (word, raw vector) rows, returning a new store (JAX
+        store.py:150-169). New rows get the next dense ids; their
+        normalized rows are ``normalize(vectors)``. Duplicate words raise
+        (``insert_batch`` skips terms already present, freddy.c:1498-1514,
+        before it gets here)."""
+        self._check_new(words)
+        vecs = torch.as_tensor(vectors, dtype=torch.float32,
+                               device=self.device)
+        w2i = dict(self.word_to_id)
+        for i, w in enumerate(words, start=len(self.words)):
+            w2i[w] = i
+        return VectorStore(self.words + list(words), w2i,
+                           torch.cat([self.vectors, vecs]),
+                           torch.cat([self.vectors_norm,
+                                      vec_normalize(vecs)]))
+
+    def extend_inplace(self, words: Sequence[str], vectors
+                       ) -> "VectorStore":
+        """The insert path's :meth:`extend`: appends to THIS store and
+        returns it (JAX store.py:171-201). The host side is a list and
+        dict append, O(batch); the device side one concatenation per
+        table. Duplicates are checked before anything changes, so a raise
+        leaves the store as it was. The raw table is replaced before the
+        normalized one is concatenated, so the old raw table can be freed
+        first."""
+        self._check_new(words)
+        vecs = torch.as_tensor(vectors, dtype=torch.float32,
+                               device=self.device)
+        self.vectors = torch.cat([self.vectors, vecs])
+        self.vectors_norm = torch.cat([self.vectors_norm,
+                                       vec_normalize(vecs)])
+        start = len(self.words)
+        self.words.extend(words)
+        for i, w in enumerate(words, start=start):
+            self.word_to_id[w] = i
+        return self
+
     # --------------------------------------------------------- persistence
     def save(self, path: str | Path) -> None:
         """Serialize to .npz, the JAX package's format. Words are

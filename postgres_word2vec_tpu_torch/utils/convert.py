@@ -6,12 +6,13 @@ The JAX package saves a store as ``words`` + ``vectors``
 (``models/pq.py``, ``PQIndex.save``), an IVFADC index as its coarse
 quantizer, residual codebook and CSR lists (``models/ivfadc.py``,
 ``IVFADCIndex.save``) and an IVPQ index as its multi-index quantizer,
-codebook, codes and cells (``models/ivpq.py``, ``IVPQIndex.save``). These
-helpers take those fields as numpy arrays and build the port's objects on
-a device, keeping the code dtype (uint8 for k ≤ 256, int16 otherwise).
+codebook, codes and cells (``models/ivpq.py``, ``IVPQIndex.save``), and
+an engine's settings as ``engine.json`` (``api.py``, ``Freddy.save``).
+These helpers take those fields and build the port's objects on a device,
+keeping the code dtype (uint8 for k ≤ 256, int16 otherwise).
 ``Freddy.load`` goes through them, so an engine directory written by the
-JAX ``Freddy.save`` loads here, and tests can hold both packages to the
-same trained index.
+JAX ``Freddy.save`` — after inserts too — loads here, and tests can hold
+both packages to the same trained index.
 """
 
 from __future__ import annotations
@@ -75,14 +76,21 @@ def pq_from_numpy(arrays: Mapping[str, np.ndarray],
 def ivfadc_from_numpy(arrays: Mapping[str, np.ndarray],
                       device: torch.device | str | None = None
                       ) -> IVFADCIndex:
-    """An IVFADC index from the JAX ``ivfadc.npz`` fields (the insert tail
-    is flushed before the JAX package saves, so the lists are whole)."""
+    """An IVFADC index from the JAX ``ivfadc.npz`` fields. After an insert
+    the JAX package flushes the insert tail into the CSR lists before it
+    saves (as the port does), so the lists are whole, ``cell_offsets``
+    ends at the row count and the rows of every cell are one run."""
     dev = _on(device)
     codebook, codes = _codebook(arrays, "codes_sorted", dev)
     offsets = np.asarray(arrays["cell_offsets"])
     if offsets[-1] != codes.shape[0]:
         raise ValueError(f"cell_offsets end at {offsets[-1]}, not at the "
                          f"{codes.shape[0]} code rows")
+    n_rows = np.asarray(arrays["row_ids"]).shape[0]
+    if n_rows != codes.shape[0] or np.asarray(
+            arrays["assignments"]).shape[0] != n_rows:
+        raise ValueError("row_ids and assignments must have one entry per "
+                         "code row")
     return IVFADCIndex(
         CoarseQuantizer(dev(arrays["coarse_centroids"], np.float32),
                         dev(arrays["coarse_counts"], np.int32)),
@@ -100,3 +108,13 @@ def ivpq_from_numpy(arrays: Mapping[str, np.ndarray],
         MultiIndexQuantizer(dev(arrays["coarse_centroids"], np.float32),
                             dev(arrays["cell_counts"], np.int32)),
         codebook, codes, dev(arrays["cell_of"], np.int64))
+
+
+def engine_meta(meta: Mapping) -> dict:
+    """The JAX ``engine.json`` settings: ``params`` (the runtime
+    parameters, ``pq_lut_dtype`` among them), ``dispatch``, ``exact_dtype``
+    and ``exact_approx`` (defaults for files that predate the last two).
+    ``Freddy`` checks each value as it applies it."""
+    return {"params": dict(meta["params"]), "dispatch": dict(meta["dispatch"]),
+            "exact_dtype": meta.get("exact_dtype", "float32"),
+            "exact_approx": bool(meta.get("exact_approx", False))}

@@ -18,7 +18,11 @@ Tolerances:
   term: they agree bit for bit in practice);
 - K9 / K10 budget exact: atol 1e-4 on the finite shifted scores and the
   same +inf entries (float32 queries, bf16 rows widened exactly, float32
-  sums over 304 products in another order than the plain matmul's).
+  sums over 304 products in another order than the plain matmul's);
+- K3 / K5 / K8 over int8 LUTs: exact int32 sums and the plain version's
+  rounding of the rescale (and of K8's row-term add), so K3 and K5 are held
+  to equality (mins, ids and +inf / −1 slots) and K8 to atol 1e-5 on the
+  finite entries with the same +inf entries.
 """
 
 import numpy as np
@@ -279,9 +283,36 @@ def test_budget_wrappers_raise_on_bad_input():
     with pytest.raises(ValueError):
         kernels.budget_exact_grouped(q, vecs, rownorm, t2, block_t=128,
                                      rows=33)
-    with pytest.raises(NotImplementedError, match="K8"):
-        kernels.budget_adc_auto(luts, codes_t, rowterm, tiles, block_t=128,
-                                lut_dtype="int8")
+    ql, sc = kernels.quantize_luts_int8(luts)
+    with pytest.raises(ValueError):
+        kernels.budget_adc_grouped_int8(ql.float(), sc, codes_t, rowterm,
+                                        tiles, block_t=128)
+    with pytest.raises(ValueError):
+        kernels.adc_scan_int8(ql, sc[:1], codes_t)
+
+
+def test_budget_adc_auto_int8_runs_k8_or_warns():
+    """The join regime routes int8 to K8 and agrees with the int8 plain
+    version; a sparse probe warns and runs K6 on float32 LUTs, as the JAX
+    package does."""
+    luts, codes_t, rowterm, tiles = _budget_case(11, 64, 30, 32, torch.uint8,
+                                                 256, P=8)
+    before = kernels.launch_counts()
+    got = kernels.budget_adc_auto(luts, codes_t, rowterm, tiles, block_t=256,
+                                  lut_dtype="int8")
+    after = kernels.launch_counts()
+    assert after["budget_adc_grouped_int8"] == (
+        before["budget_adc_grouped_int8"] + 1)
+    ql, sc = kernels.quantize_luts_int8(luts)
+    _assert_budget_close(got, kernels.budget_adc_plain(
+        ql, codes_t, rowterm, tiles, block_t=256, scale=sc), 1e-5)
+    sparse = tiles[:2, :1]
+    with pytest.warns(UserWarning, match="no int8 variant"):
+        out = kernels.budget_adc_auto(luts[:2], codes_t, rowterm, sparse,
+                                      block_t=256, lut_dtype="int8")
+    assert kernels.launch_counts()["budget_adc"] == after["budget_adc"] + 1
+    _assert_budget_close(out, kernels.budget_adc_plain(
+        luts[:2], codes_t, rowterm, sparse, block_t=256), 1e-5)
 
 
 def test_probe_engine_on_cuda_matches_cpu(tmp_path, monkeypatch):
@@ -343,3 +374,91 @@ def _same_rows(got, want, hit_floor=0.99, atol=1e-4):
     for (q, w, s), hit in zip(got, hits):
         if hit:
             assert abs(s - sims[(q, w)]) <= atol
+
+
+# ------------------------------------------------------ int8 LUTs (K3/K5/K8)
+
+I8_BOOKS = ((12, 256, torch.uint8), (60, 16, torch.uint8),
+            (12, 1024, torch.int16), (12, 16, torch.uint8),
+            (30, 32, torch.uint8), (15, 1024, torch.int16))
+
+
+def _i8_inputs(seed, B, m, k, n, dtype):
+    luts, codes_t = _adc_inputs(seed, B, m, k, n, dtype)
+    return (*kernels.quantize_luts_int8(luts), codes_t)
+
+
+@pytest.mark.parametrize("n", N_EDGES)
+@pytest.mark.parametrize("B", (1, 33, 257))
+@pytest.mark.parametrize("m,k,dtype", I8_BOOKS)
+def test_adc_scan_int8_matches_plain(n, B, m, k, dtype):
+    ql, sc, codes_t = _i8_inputs(3 * n + B + m, B, m, k, n, dtype)
+    before = kernels.KERNELS["adc_scan_int8"].launches
+    got = kernels.adc_scan_int8(ql, sc, codes_t)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["adc_scan_int8"].launches == before + 1
+    assert torch.equal(got, kernels.adc_scan_plain(ql, codes_t, scale=sc))
+
+
+@pytest.mark.parametrize("n", N_EDGES)
+@pytest.mark.parametrize("B", (1, 33, 257))
+@pytest.mark.parametrize("m,k,dtype", I8_BOOKS)
+def test_adc_scan_binned_int8_matches_plain(n, B, m, k, dtype):
+    ql, sc, codes_t = _i8_inputs(4 * n + B + m, B, m, k, n, dtype)
+    before = kernels.KERNELS["adc_scan_binned_int8"].launches
+    mins, ids = kernels.adc_scan_binned_int8(ql, sc, codes_t)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["adc_scan_binned_int8"].launches == before + 1
+    ref_mins, ref_ids = kernels.adc_scan_binned_plain(ql, codes_t, scale=sc)
+    assert torch.equal(mins, ref_mins) and torch.equal(ids, ref_ids)
+    dense = kernels.adc_scan_plain(ql, codes_t, scale=sc)
+    kernels.verify_binned(mins, ids, ref_mins,
+                          lambda i: torch.gather(dense, 1, i), block_n=2048,
+                          bins=128, valid_n=n, atol=0.0)
+
+
+@pytest.mark.parametrize("block_t", BLOCKS)
+@pytest.mark.parametrize("B", B_EDGES)
+@pytest.mark.parametrize("m,k,dtype", BUDGET_BOOKS + ((12, 16, torch.uint8),))
+@pytest.mark.parametrize("rows", (8, 32))
+def test_budget_adc_grouped_int8_matches_plain(block_t, B, m, k, dtype, rows):
+    luts, codes_t, rowterm, tiles = _budget_case(3 * block_t + B + m, B, m,
+                                                 k, dtype, block_t)
+    ql, sc = kernels.quantize_luts_int8(luts)
+    before = kernels.KERNELS["budget_adc_grouped_int8"].launches
+    got = kernels.budget_adc_grouped_int8(ql, sc, codes_t, rowterm, tiles,
+                                          block_t=block_t, rows=rows)
+    assert kernels.KERNELS["budget_adc_grouped_int8"].launches == before + 1
+    _assert_budget_close(got, kernels.budget_adc_plain(
+        ql, codes_t, rowterm, tiles, block_t=block_t, scale=sc), 1e-5)
+
+
+def test_int8_kernels_read_a_bad_tile_as_the_inf_tile():
+    luts, codes_t, rowterm, tiles = _budget_case(17, 3, 12, 256, torch.uint8,
+                                                 128)
+    tiles[0, 0], tiles[1, 1] = -1, 10 ** 6
+    out = kernels.budget_adc_grouped(luts, codes_t, rowterm, tiles,
+                                     block_t=128, lut_dtype="int8")
+    torch.cuda.synchronize()
+    assert torch.isinf(out[0, :128]).all()
+    assert torch.isinf(out[1, 128:256]).all()
+
+
+def test_exact_int8_on_cuda_matches_cpu():
+    """torch._int_mm on the card (rows and width padded to its multiples
+    of 8) gives the CPU's exact int32 products: the same scores."""
+    from postgres_word2vec_tpu_torch.models.exact import ExactIndex
+
+    rng = np.random.default_rng(5)
+    v = rng.normal(size=(5003, 300)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    q = v[:7]
+    cpu = ExactIndex(torch.as_tensor(v), "int8")
+    gpu = ExactIndex(torch.as_tensor(v, device="cuda"), "int8")
+    d_c, i_c = cpu.search(torch.as_tensor(q), 10)
+    d_g, i_g = gpu.search(torch.as_tensor(q, device="cuda"), 10)
+    torch.testing.assert_close(d_g.cpu(), d_c, atol=1e-5, rtol=0)
+    assert (i_g.cpu()[:, 0] == torch.arange(7)).all()
+    grown = gpu.extended(gpu.vectors, torch.as_tensor(q, device="cuda"))
+    d_e, i_e = grown.search(torch.as_tensor(q, device="cuda"), 2)
+    assert set(i_e[:, :2].flatten().tolist()) >= set(range(5003, 5010))

@@ -149,5 +149,5 @@ def test_build_in_the_port(rng):
     assert sorted(np_(idx.row_ids).tolist()) == list(range(2000))
     _, ids = idx.search_pv(x[:32], 5, 10, x, w=3)
     assert (ids[:, 0] == torch.arange(32)).float().mean() >= 0.9
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.add(x[:2])
+    grown = idx.add(x[:2])
+    assert grown.size == 2002 and grown.tail_count == 2

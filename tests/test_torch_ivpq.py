@@ -232,9 +232,11 @@ def test_search_join_argument_checks(join_case):
         idx.search_join(q, 5, to_torch(tids), method=1)
     with pytest.raises(ValueError, match="lut_dtype"):
         idx.search_join(q, 5, to_torch(tids), lut_dtype="fp8")
-    # int8 LUTs need kernel K8: the plain rounds ignore the setting
-    a = idx.search_join(q, 5, to_torch(tids), lut_dtype="int8",
-                        impl="budget")
+    # two queries probe sparsely: the per-query kernel has no int8 twin, so
+    # the round warns and keeps float32 LUTs, as in the JAX package
+    with pytest.warns(UserWarning, match="no int8 variant"):
+        a = idx.search_join(q, 5, to_torch(tids), lut_dtype="int8",
+                            impl="budget")
     b = idx.search_join(q, 5, to_torch(tids), impl="budget")
     assert torch.equal(a[1], b[1])
 
@@ -260,5 +262,5 @@ def test_build_in_the_port(rng):
     _, ids = idx.search_join(x[:64:2], 5, tids, vectors=x, alpha=20,
                              method=1)
     assert (ids[:, 0] == torch.arange(0, 64, 2)).float().mean() >= 0.9
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.add(x[:2])
+    grown = idx.add(x[:2])
+    assert grown.size == 2002 and int(grown.coarse.cell_counts.sum()) == 2002

@@ -94,14 +94,6 @@ def test_exact_index_fused_runs_the_fused_path(rng):
         ExactIndex(to_torch(v), "float32", fused=True)
 
 
-def test_exact_int8_and_extended_are_not_ported(rng):
-    v = to_torch(_clustered(rng, n=100))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ExactIndex(v, "int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ExactIndex(v).extended(v, v[:2])
-
-
 # --------------------------------------------------------------------- PQ
 
 def _jax_pq(eng_path):
@@ -176,8 +168,6 @@ def test_pq_build_in_the_port(rng):
     assert hits / gt.numel() >= 0.9
     with pytest.raises(NotImplementedError):
         PQIndex.build(g, v, m=12, k=16, aniso_eta=2.0)
-    with pytest.raises(NotImplementedError):
-        index.search(q, 5, impl="kernel_int8")
 
 
 # ------------------------------------------------------------- the slice
@@ -278,8 +268,8 @@ def test_every_jax_engine_method_exists_or_raises(saved_jax_engine):
 
 
 def test_unported_families_raise(saved_jax_engine):
-    """What slice 2 left out raises and names its ROADMAP item: the mesh,
-    anisotropic refinement, and the IVFADC / IVPQ insert paths."""
+    """What the slices so far left out raises and names its ROADMAP item:
+    the mesh and anisotropic refinement."""
     _, path = saved_jax_engine
     store = Freddy.load(path).store
     with pytest.raises(NotImplementedError, match="sharding"):
@@ -287,25 +277,41 @@ def test_unported_families_raise(saved_jax_engine):
     with pytest.raises(NotImplementedError, match="anisotropic"):
         Freddy.build(store, with_ivfadc=False, with_ivpq=False,
                      aniso_eta=2.0)
-    eng = Freddy.build(store, with_pq=False, ivfadc_m=12, ivfadc_k=16,
-                       k_coarse=8, ivpq_m=12, ivpq_k=16, ivpq_k_coarse=4,
-                       train_size=None, iters=2)
-    v = store.vectors_norm[:4]
-    for call in (lambda: eng.ivfadc.add(v), eng.ivfadc.flush,
-                 lambda: eng.ivpq.add(v)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*insert"):
-            call()
 
 
-def test_int8_luts_raise_on_a_cuda_engine(saved_jax_engine, monkeypatch):
-    _, path = saved_jax_engine
-    port = Freddy.load(path)
-    port.set_pq_lut_dtype("int8")               # CPU: ignored, as in JAX
-    port.set_pq_lut_dtype("bf16")
+def test_jax_engine_with_int8_luts_loads_on_a_cuda_engine(saved_jax_engine,
+                                                          tmp_path,
+                                                          monkeypatch):
+    """An engine the JAX package saved with ``pq_lut_dtype="int8"`` loads
+    on a CUDA engine (the device is patched, the tensors stay on the CPU)
+    and routes PQ to the int8 kernels; on the CPU the knob is ignored, as
+    the JAX engine ignores it off the TPU."""
+    eng, _ = saved_jax_engine
+    eng.set_pq_lut_dtype("int8")
+    try:
+        eng.save(tmp_path)
+    finally:
+        eng.set_pq_lut_dtype("bf16")
+    cpu = Freddy.load(tmp_path)
+    assert cpu.params.pq_lut_dtype == "int8" and cpu._pq_impl() is None
     monkeypatch.setattr(VectorStore, "device",
                         property(lambda self: torch.device("cuda")))
-    with pytest.raises(NotImplementedError, match="K3, K5 and K8"):
-        port.set_pq_lut_dtype("int8")
+    port = Freddy.load(tmp_path)
+    assert port.params.pq_lut_dtype == "int8"
+    assert port._pq_impl() == "kernel_int8"
+    with pytest.raises(ValueError, match="pq_lut_dtype"):
+        port.set_pq_lut_dtype("fp8")
+
+
+def test_jax_engine_with_int8_exact_loads(saved_jax_engine, tmp_path):
+    """An engine the JAX package saved with ``exact_dtype="int8"`` loads
+    in the port and its exact family answers as the JAX engine's does."""
+    eng, _ = saved_jax_engine
+    JFreddy(eng.store, pq=eng.pq, exact_dtype="int8").save(tmp_path)
+    jeng = JFreddy.load(tmp_path)
+    port = Freddy.load(tmp_path)
+    assert port.exact.compute_dtype == "int8"
+    _same_knn(jeng, port)
 
 
 # ------------------------------------------------- slice 2: the probe path
