@@ -25,7 +25,10 @@ a user calls, and holds every hand-written kernel to its plain version:
      kernel, with the JAX package's warning), and the int8 exact index;
    with recall against the float32 exact scan over the same targets;
 5. times: p50 per query from CUDA events, kernel and plain version side
-   by side, and each kernel alone against its plain version;
+   by side, and each kernel alone against its plain version, with its
+   bound at those shapes (HBM bytes or peak operations, the larger) and,
+   for K1, one bf16 ``torch.matmul`` of the same product as a yardstick;
+   K4 at 16 and at 8 queries per block;
 6. only with ``--profile OUT.json``: a ``torch.profiler`` window of 3
    calls per path, written to OUT.json — host wall and device time per
    call, the device's busy share, the top device kernels, and each
@@ -79,11 +82,12 @@ FLOORS = {"pq@5": 0.45, "pq_pv@5": 0.85, "fused@10": 0.95,
 # int8 recall no more than this below the same run's float-LUT recall
 INT8_DROP = {"pq_int8@5": "pq@5", "join_int8_m2_a200@5": "join_m2_a200@5"}
 INT8_MAX_DROP = 0.02
-# K6/K7 sum subspaces in the plain version's order (bit-equal in
-# practice); K9/K10 sum 304 float32 products in another order; K3/K5 sum
-# exactly in int32 and round the one rescale as the plain version does;
-# K8 also rounds its row-term add on its own (__fmul_rn, then __fadd_rn).
-TOL = {"adc_scan": 1e-4, "adc_scan_binned": 1e-5, "fused_exact_scan": 1e-3,
+# K4/K6/K7 sum subspaces in the plain version's order (K4 is held to bit
+# equality, ids too); K9/K10 sum 304 float32 products in another order;
+# K3/K5 sum exactly in int32 and round the one rescale as the plain version
+# does; K8 also rounds its row-term add on its own (__fmul_rn, then
+# __fadd_rn); K1 sums bf16 products on the tensor cores in another order.
+TOL = {"adc_scan": 1e-4, "adc_scan_binned": 0.0, "fused_exact_scan": 1e-3,
        "budget_adc": 1e-5, "budget_adc_grouped": 1e-5, "budget_exact": 1e-4,
        "budget_exact_grouped": 1e-4, "adc_scan_int8": 0.0,
        "adc_scan_binned_int8": 0.0, "budget_adc_grouped_int8": 1e-5}
@@ -94,6 +98,12 @@ I8_BOOKS = ((60, 16, "uint8"), (12, 1024, "int16"), (12, 16, "uint8"),
 # the insert phase: new two-word terms, in batches
 INSERT_TERMS, INSERT_BATCH = 10_240, 2_560
 INSERT_FLOORS = {"pq_pv20_self@5": 0.9, "ivfadc_pv20_self@5": 0.8}
+# The H100 SXM's published peaks (NVIDIA's data sheet, dense rates at
+# 700 W): HBM3 bytes/s, bf16 tensor-core and float32 CUDA-core
+# operations/s. The ADC lookups (float or int32 adds) and K9/K10's products
+# run on CUDA cores.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -139,6 +149,15 @@ def p50(xs):
     s = sorted(xs)
     return s[len(s) // 2] if len(s) % 2 else 0.5 * (s[len(s) // 2 - 1]
                                                     + s[len(s) // 2])
+
+
+def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
+    """The least time in ms the card could take: the larger of the bytes
+    over HBM bandwidth and the operations over the peak rate of ``kind``,
+    and which of the two it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[kind]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def budget_err(torch, got, want, name: str, what: str) -> float:
@@ -212,7 +231,9 @@ def boundary_checks(torch, kernels) -> None:
                 check(err <= TOL["adc_scan"],
                       f"adc_scan n={n} B={B} {m}x{k}: err {err}")
                 mins, ids = kernels.adc_scan_binned(luts, codes_t)
-                ref, _ = kernels.adc_scan_binned_plain(luts, codes_t)
+                ref, ref_ids = kernels.adc_scan_binned_plain(luts, codes_t)
+                check(torch.equal(mins, ref) and torch.equal(ids, ref_ids),
+                      f"adc_scan_binned n={n} B={B} {m}x{k} differs")
                 kernels.verify_binned(
                     mins, ids, ref, lambda i: torch.gather(dense, 1, i),
                     block_n=2048, bins=128, valid_n=n,
@@ -519,6 +540,7 @@ def main() -> int:
     ap.add_argument("--profile", metavar="OUT.json",
                     help="also profile each path and write the report here")
     args = ap.parse_args()
+    started = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -596,11 +618,13 @@ def main() -> int:
     check(errs["adc_scan"] <= TOL["adc_scan"],
           f"adc_scan main path: err {errs['adc_scan']}")
     mins, ids = kernels.adc_scan_binned(luts, codes_t)
-    ref, _ = kernels.adc_scan_binned_plain(luts, codes_t)
+    ref, ref_ids = kernels.adc_scan_binned_plain(luts, codes_t)
+    check(torch.equal(ids, ref_ids), "adc_scan_binned main path: ids differ "
+          "from the plain version")
     errs["adc_scan_binned"] = kernels.verify_binned(
         mins, ids, ref, lambda i: torch.gather(dense, 1, i), block_n=2048,
         bins=128, valid_n=N, atol=TOL["adc_scan_binned"])
-    del dense, mins, ids, ref
+    del dense, mins, ids, ref, ref_ids
     # K3/K5 at the same shape, over the same LUTs quantized to int8
     ql, sc = kernels.quantize_luts_int8(luts)
     dense = kernels.adc_scan_plain(ql, codes_t, scale=sc)
@@ -919,6 +943,54 @@ def main() -> int:
             lambda: kernels.adc_scan_binned_plain(ql, codes_t, scale=sc)),
         **{name: (kfn, pfn) for name, (kfn, pfn, _) in shapes.items()},
     }
+
+    # Each kernel's bound at these shapes: its inputs read once and its
+    # outputs written once; the budget kernels read only the distinct tiles
+    # they probe. Operations count what the data needs: d = 300 columns
+    # and the N real rows for the exact products, m adds per ADC sum.
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def probe_bytes(tiles, block_t, row_bytes, *inputs):
+        return (nbytes(tiles, *inputs) + tiles.numel() * block_t * 4
+                + int(torch.unique(tiles).numel()) * block_t * row_bytes)
+
+    adc_ops = EVAL_Q * N * luts.shape[1]
+    dense_out = EVAL_Q * N * 4
+    binned_out = EVAL_Q * -(-N // 2048) * 128 * 8
+    fx_out = FUSED_B * fused._tiled.shape[0] // 8192 * 128 * 8
+    ivf_row = tiled.codes_t.shape[0] * tiled.codes_t.element_size() + 4
+    join_row = jt100.codes_t.shape[0] * jt100.codes_t.element_size() + 4
+    vec_row = jt100v.vecs.shape[1] * 2 + 4
+    join_ops = tiles_j.numel() * jt100.block_t * luts_join.shape[1]
+    work = {
+        "adc_scan": (nbytes(luts, codes_t) + dense_out, adc_ops, "fp32"),
+        "adc_scan_binned": (nbytes(luts, codes_t) + binned_out, adc_ops,
+                            "fp32"),
+        "fused_exact_scan": (
+            nbytes(qb, fused._tiled, fused._tiled_norms) + fx_out,
+            2 * FUSED_B * N * D, "bf16"),
+        "adc_scan_int8": (nbytes(ql, sc, codes_t) + dense_out, adc_ops,
+                          "fp32"),
+        "adc_scan_binned_int8": (nbytes(ql, sc, codes_t) + binned_out,
+                                 adc_ops, "fp32"),
+        "budget_adc": (
+            probe_bytes(tiles_ivf, tiled.block_t, ivf_row, luts_ivf),
+            tiles_ivf.numel() * tiled.block_t * luts_ivf.shape[1], "fp32"),
+        "budget_adc_grouped": (
+            probe_bytes(tiles_j, jt100.block_t, join_row, luts_join),
+            join_ops, "fp32"),
+        "budget_adc_grouped_int8": (
+            probe_bytes(tiles_j, jt100.block_t, join_row, ql_join, sc_join),
+            join_ops, "fp32"),
+        "budget_exact": (
+            probe_bytes(tiles_1, jt100v.block_t, vec_row, q256[7:8]),
+            2 * tiles_1.numel() * jt100v.block_t * D, "fp32"),
+        "budget_exact_grouped": (
+            probe_bytes(tiles_jv, jt100v.block_t, vec_row, qj),
+            2 * tiles_jv.numel() * jt100v.block_t * D, "fp32"),
+    }
+    bounds = {name: bound(*w) for name, w in work.items()}
     for name, (kfn, pfn) in pairs.items():
         pl1, kt, kt2, pl2 = (cuda_ms(torch, pfn, reps=3),
                              cuda_ms(torch, kfn, reps=3),
@@ -927,8 +999,33 @@ def main() -> int:
         kernel_ms[name], plain_ms[name] = p50(kt + kt2), p50(pl1 + pl2)
         log(f"[5] kernel {name}: {kernel_ms[name]:.3f} ms, plain "
             f"{plain_ms[name]:.3f} ms per call (p50 of 6, plain-kernel-"
-            f"kernel-plain) on {card}")
-    del luts, ql, sc
+            f"kernel-plain), bound {bounds[name][0]:.4f} ms "
+            f"({bounds[name][1]}) on {card}")
+    # K1's yardstick, never called by the port: one bf16 matmul of the
+    # same (B, D) x (D, N_pad) product, without the bin reduction
+    library_ms = {name: None for name in kernels.KERNELS}
+    library_ms["fused_exact_scan"] = p50(cuda_ms(
+        torch, lambda: torch.matmul(qb, fused._tiled.t()), reps=3))
+    log(f"[5] library for fused_exact_scan: bf16 torch.matmul "
+        f"{tuple(qb.shape)} x {tuple(fused._tiled.t().shape)} "
+        f"{library_ms['fused_exact_scan']:.3f} ms on {card}")
+    # K4's queries per block, swept at the main shape through the C entry
+    # point that takes it (the wrapper lets the kernel choose: 16 here)
+    lib = _build.load()
+    sweep_out = kernels.adc_scan_binned(luts, codes_t)
+    sweep = {}
+    for qblk in (16, 8):
+        def k4_at(qblk=qblk):
+            err = lib.pw2v_adc_scan_binned_qb(
+                luts.data_ptr(), codes_t.data_ptr(), codes_t.element_size(),
+                sweep_out[0].data_ptr(), sweep_out[1].data_ptr(), EVAL_Q,
+                luts.shape[1], luts.shape[2], N, 2048, 128, qblk,
+                torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"adc_scan_binned qb={qblk}: CUDA error {err}")
+        sweep[qblk] = p50(cuda_ms(torch, k4_at, reps=3))
+    log(f"[5] K4 queries per block at B={EVAL_Q}, 12x256: " + ", ".join(
+        f"qb={q} {t:.3f} ms" for q, t in sweep.items()) + f" on {card}")
+    del luts, ql, sc, sweep_out
 
     def joined(method, targets, alpha, stats, lut_dtype="bf16"):
         def go():
@@ -1031,8 +1128,10 @@ def main() -> int:
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],
          "max_abs_err": errs[k.name], "ms": kernel_ms[k.name],
-         "plain_ms": plain_ms[k.name]}
+         "plain_ms": plain_ms[k.name], "bound_ms": bounds[k.name][0],
+         "bound_by": bounds[k.name][1], "library_ms": library_ms[k.name]}
         for k in kernels.KERNELS.values()]}
+    log(f"[8] the whole run took {time.perf_counter() - started:.1f} s")
     log(json.dumps({"recall": rec, "paths_ms_per_query": times,
                     "insert": inserted, "path_launches": path_launches,
                     "gpu": card}))

@@ -52,6 +52,7 @@ from postgres_word2vec_tpu_torch.ops import kernels
 from postgres_word2vec_tpu_torch.ops import vector_ops as vo
 from postgres_word2vec_tpu_torch.store import VectorStore
 from postgres_word2vec_tpu_torch.utils import convert
+from postgres_word2vec_tpu_torch.utils.device import resolve_device
 from postgres_word2vec_tpu_torch.utils.tracker import GLOBAL_TRACKER
 
 
@@ -605,9 +606,12 @@ class Freddy:
     def load(cls, directory, *, device: torch.device | str | None = None,
              mesh=None) -> "Freddy":
         """Load an engine directory written by this port's or the JAX
-        package's ``Freddy.save`` onto ``device`` (default CPU)."""
+        package's ``Freddy.save`` onto ``device``: the card unless another
+        is named (``device="cpu"`` for the CPU); without a card and without
+        ``device`` it raises."""
         if mesh is not None:
             raise NotImplementedError(f"mesh: {_SHARDING}")
+        device = resolve_device(device)
         d = Path(directory)
         with np.load(d / "store.npz", allow_pickle=False) as f:
             store = convert.store_from_numpy([str(w) for w in f["words"]],

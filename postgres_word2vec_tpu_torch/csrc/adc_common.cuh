@@ -69,6 +69,57 @@ __device__ __forceinline__ void adc_row(float (&acc)[ADC_MAX_QB],
   }
 }
 
+// --------------------------------------------- query-minor float32 LUTs
+//
+// K4 (adc_scan_binned.cu) stages the float32 LUTs of QB queries query-minor:
+// entry r = j*k + c of the QB queries is QB consecutive floats, so one
+// 16-byte shared load fetches one lookup for four queries. A thread keeps F
+// of the QB queries (four when QB >= 4), and L = QB / F neighbouring threads
+// share one code row, so together they read all QB floats of an entry.
+template <int QB>
+struct AdcF32 {
+  static constexpr int F = QB >= 4 ? 4 : QB;  // queries a thread keeps
+  static constexpr int L = QB / F;            // threads that share a row
+};
+
+// Stage the float32 LUTs of queries [b0, b0 + nq) into lut_s, query-minor:
+// lut_s[r*QB + q] = luts[b0 + q, r]; slots q >= nq are zero. Writes run
+// along lut_s, so they meet no bank conflict.
+template <int QB>
+__device__ __forceinline__ void adc_f32_stage(float* lut_s,
+                                              const float* __restrict__ luts,
+                                              int b0, int nq, int mk) {
+  for (int i = threadIdx.x; i < QB * mk; i += blockDim.x) {
+    const int q = i % QB;
+    const int r = i / QB;
+    lut_s[i] = q < nq ? luts[(long long)(b0 + q) * mk + r] : 0.f;
+  }
+  __syncthreads();
+}
+
+// acc[i] += staged lookup of entry r for query v*F + i, i < F: one 16-byte
+// (F = 4), 8-byte or 4-byte shared load.
+template <int QB>
+__device__ __forceinline__ void adc_f32_add(float (&acc)[AdcF32<QB>::F],
+                                            const float* lut_s, int r,
+                                            int v) {
+  constexpr int F = AdcF32<QB>::F;
+  const float* e = lut_s + r * QB + v * F;
+  if constexpr (F == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(e);
+    acc[0] += x.x;
+    acc[1] += x.y;
+    acc[2] += x.z;
+    acc[3] += x.w;
+  } else if constexpr (F == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(e);
+    acc[0] += x.x;
+    acc[1] += x.y;
+  } else {
+    acc[0] += e[0];
+  }
+}
+
 // Raise the block's dynamic shared-memory limit where a launch needs more
 // than the default 48 KB; without it the launch is refused and never runs.
 template <typename Kernel>

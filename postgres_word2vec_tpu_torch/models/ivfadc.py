@@ -553,6 +553,8 @@ class IVFADCIndex:
     @classmethod
     def load(cls, path: str | Path, *,
              device: torch.device | str | None = None) -> "IVFADCIndex":
+        """An index saved by either package, on the card unless ``device``
+        names another."""
         from postgres_word2vec_tpu_torch.utils.convert import ivfadc_from_numpy
 
         with np.load(path, allow_pickle=False) as f:

@@ -739,6 +739,8 @@ class IVPQIndex:
     @classmethod
     def load(cls, path: str | Path, *,
              device: torch.device | str | None = None) -> "IVPQIndex":
+        """An index saved by either package, on the card unless ``device``
+        names another."""
         from postgres_word2vec_tpu_torch.utils.convert import ivpq_from_numpy
 
         with np.load(path, allow_pickle=False) as f:

@@ -387,6 +387,8 @@ class PQIndex:
     @classmethod
     def load(cls, path: str | Path, *,
              device: torch.device | str | None = None) -> "PQIndex":
+        """An index saved by either package, on the card unless ``device``
+        names another."""
         from postgres_word2vec_tpu_torch.utils.convert import pq_from_numpy
 
         with np.load(path, allow_pickle=False) as f:

@@ -36,6 +36,8 @@ SIGNATURES = {
     "pw2v_adc_scan": (_P, _P, _I, _P, _I, _I, _I, _I64, _P),
     "pw2v_adc_scan_binned": (_P, _P, _I, _P, _P, _I, _I, _I, _I64, _I, _I,
                              _P),
+    "pw2v_adc_scan_binned_qb": (_P, _P, _I, _P, _P, _I, _I, _I, _I64, _I,
+                                _I, _I, _P),
     "pw2v_fused_exact_scan": (_P, _P, _P, _P, _P, _I, _I, _I64, _I, _P),
     "pw2v_budget_adc": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I64, _I, _I,
                         _P),

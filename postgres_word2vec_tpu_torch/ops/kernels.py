@@ -350,7 +350,8 @@ def adc_scan_binned(luts: torch.Tensor, codes_t: torch.Tensor, *,
     int32), ``n_tiles = ⌈N / block_n⌉``. One survivor per strided bin, so
     the (B, N) distance matrix never reaches device memory. Rows at or past
     N count as +inf; a bin without a valid row holds +inf and its first
-    row's id (K4), or id −1 for ``lut_dtype="int8"`` (K5)."""
+    row's id (K4), or id −1 for ``lut_dtype="int8"`` (K5). On the card K4
+    takes ``bins=128``."""
     _require(bins >= 1 and block_n % bins == 0,
              f"block_n={block_n} must be a multiple of bins={bins}")
     _check_lut_dtype(lut_dtype)
@@ -360,6 +361,8 @@ def adc_scan_binned(luts: torch.Tensor, codes_t: torch.Tensor, *,
     if not _on_cuda(luts, codes_t):
         return adc_scan_binned_plain(luts, codes_t, block_n=block_n,
                                      bins=bins)
+    _require(bins == 128, f"the card's binned scan takes bins=128, got "
+             f"{bins}")
     _check_adc_inputs(luts, codes_t)
     B, m, k = luts.shape
     n = codes_t.shape[1]
@@ -546,7 +549,11 @@ def fused_exact_scan(queries: torch.Tensor, table: torch.Tensor,
     _require(queries.dtype == torch.bfloat16 and table.dtype == torch.bfloat16
              and norms.dtype == torch.float32,
              "the fused scan takes bf16 queries and table, float32 norms")
-    _require(dp % 8 == 0, f"row width {dp} must be a multiple of 8")
+    _require(dp % 8 == 0 and dp <= 448,
+             f"row width {dp} must be a multiple of 8 of at most 448")
+    _require(block_n <= 32768 and n_pad < 2**31,
+             f"block_n ({block_n}) must be at most 32768 and N_pad "
+             f"({n_pad}) below 2^31")
     for name, t in (("queries", queries), ("table", table),
                     ("norms", norms)):
         _require(t.is_contiguous() and t.data_ptr() % 16 == 0,

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from postgres_word2vec_tpu_torch.ops.vector_ops import vec_normalize
+from postgres_word2vec_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -39,7 +40,11 @@ class VectorStore:
 
         ``normalized=True`` declares the rows unit-length already: the
         normalized table is then the raw table itself, not a copy.
-        ``device`` defaults to the tensor's own device (CPU for numpy)."""
+        ``device``: a torch tensor stays on its own device unless one is
+        named; anything else goes to the card (``resolve_device``), or to
+        ``device`` if given."""
+        if device is not None or not isinstance(vectors, torch.Tensor):
+            device = resolve_device(device)
         vecs = torch.as_tensor(vectors, dtype=torch.float32, device=device)
         if vecs.ndim != 2 or vecs.shape[0] != len(words):
             raise ValueError(
@@ -57,7 +62,9 @@ class VectorStore:
                        ) -> "VectorStore":
         """Parse word2vec text format (header line ``N d``, then
         ``word v1 … vd`` rows) — parity with index_utils.py:8-40, numpy
-        parser only."""
+        parser only. On the card unless ``device`` names another; the
+        device is resolved before the file is read."""
+        device = resolve_device(device)
         words, vecs = _load_text_embeddings(Path(path), max_words)
         return cls.from_arrays(words, vecs, device=device)
 
@@ -161,8 +168,11 @@ class VectorStore:
     @classmethod
     def load(cls, path: str | Path, *,
              device: torch.device | str | None = None) -> "VectorStore":
+        """A store saved by either package, on the card unless ``device``
+        names another."""
         from postgres_word2vec_tpu_torch.utils.convert import store_from_numpy
 
+        device = resolve_device(device)
         with np.load(path, allow_pickle=False) as f:
             words = [str(w) for w in f["words"]]
             vectors = f["vectors"]

@@ -8,7 +8,8 @@ quantizer, residual codebook and CSR lists (``models/ivfadc.py``,
 ``IVFADCIndex.save``) and an IVPQ index as its multi-index quantizer,
 codebook, codes and cells (``models/ivpq.py``, ``IVPQIndex.save``), and
 an engine's settings as ``engine.json`` (``api.py``, ``Freddy.save``).
-These helpers take those fields and build the port's objects on a device,
+These helpers take those fields and build the port's objects on a device
+(the card unless the caller names another, ``utils.device.resolve_device``),
 keeping the code dtype (uint8 for k ≤ 256, int16 otherwise).
 ``Freddy.load`` goes through them, so an engine directory written by the
 JAX ``Freddy.save`` — after inserts too — loads here, and tests can hold
@@ -28,6 +29,7 @@ from postgres_word2vec_tpu_torch.models.ivpq import (IVPQIndex,
                                                      MultiIndexQuantizer)
 from postgres_word2vec_tpu_torch.models.pq import PQCodebook, PQIndex
 from postgres_word2vec_tpu_torch.store import VectorStore
+from postgres_word2vec_tpu_torch.utils.device import resolve_device
 
 _CODE_DTYPES = (np.uint8, np.int16)
 
@@ -42,6 +44,8 @@ def store_from_numpy(words: Sequence[str], vectors: np.ndarray,
 
 
 def _on(device):
+    device = resolve_device(device)
+
     def dev(a, dtype=None):
         a = np.asarray(a) if dtype is None else np.asarray(a, dtype)
         return torch.as_tensor(np.ascontiguousarray(a), device=device)

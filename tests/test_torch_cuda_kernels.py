@@ -8,11 +8,13 @@ imports): ``python -m pytest tests/test_torch_cuda_kernels.py -q
 Tolerances:
 - K2 dense ADC: atol 1e-4 on the float32 sums (the kernel sums subspaces
   in the plain version's order, so they agree far closer in practice);
-- K4 binned ADC: mins within 1e-5 of the plain bin mins; every id lies in
-  its own bin and points at a row whose dense distance equals the bin min
-  within 1e-5;
-- K1 fused exact: the same contract with atol 1e-3 — bf16 inputs, float32
-  sums over 304 terms taken in another order than cuBLAS's;
+- K4 binned ADC: mins and ids equal to the plain version's (subspaces
+  summed in its order, the smallest id on ties), and the binned contract:
+  every id lies in its own bin and points at a row whose dense distance
+  equals the bin min;
+- K1 fused exact: the binned contract with atol 1e-3 — bf16 inputs,
+  float32 sums over 304 terms taken on the tensor cores in another order
+  than the plain matmul's; exact ties take the smallest id;
 - K6 / K7 budget ADC: atol 1e-5 on the finite entries and the same +inf
   entries (subspaces summed in the plain version's order, then the row
   term: they agree bit for bit in practice);
@@ -39,6 +41,11 @@ pytestmark = [
 
 N_EDGES = (2047, 2048, 2049, 8191, 8193)
 B_EDGES = (1, 257)
+# K4 stages 16 queries a block at 12x256 (4 at 12x1024): ragged blocks too
+K4_B = (1, 16, 17, 33, 257)
+# K1 takes 128 queries a block, 64 a warpgroup, and 8192-row tiles
+K1_N = (8191, 8192, 8193, 3 * 8192 + 5)
+K1_B = (1, 63, 64, 65, 128, 257, 1024)
 CODEBOOKS = ((12, 256, torch.uint8), (60, 16, torch.uint8),
              (12, 1024, torch.int16))
 BLOCKS = (128, 256, 1024)
@@ -68,21 +75,22 @@ def test_adc_scan_matches_plain(n, B, m, k, dtype):
 
 
 @pytest.mark.parametrize("n", N_EDGES)
-@pytest.mark.parametrize("B", B_EDGES)
+@pytest.mark.parametrize("B", K4_B)
 @pytest.mark.parametrize("m,k,dtype", CODEBOOKS)
 def test_adc_scan_binned_matches_plain(n, B, m, k, dtype):
     luts, codes_t = _adc_inputs(2 * n + B + m, B, m, k, n, dtype)
     mins, ids = kernels.adc_scan_binned(luts, codes_t)
     torch.cuda.synchronize()
-    ref_mins, _ = kernels.adc_scan_binned_plain(luts, codes_t)
+    ref_mins, ref_ids = kernels.adc_scan_binned_plain(luts, codes_t)
+    assert torch.equal(mins, ref_mins) and torch.equal(ids, ref_ids)
     dense = kernels.adc_scan_plain(luts, codes_t)
     kernels.verify_binned(mins, ids, ref_mins,
                           lambda i: torch.gather(dense, 1, i), block_n=2048,
-                          bins=128, valid_n=n, atol=1e-5)
+                          bins=128, valid_n=n, atol=0.0)
 
 
-@pytest.mark.parametrize("n", N_EDGES)
-@pytest.mark.parametrize("B", B_EDGES)
+@pytest.mark.parametrize("n", K1_N)
+@pytest.mark.parametrize("B", K1_B)
 def test_fused_exact_scan_matches_plain(n, B):
     rng = np.random.default_rng(n + B)
     v = rng.normal(size=(n, 300)).astype(np.float32)
@@ -99,6 +107,25 @@ def test_fused_exact_scan_matches_plain(n, B):
                           bins=128, valid_n=valid, atol=1e-3)
 
 
+def test_fused_exact_scan_takes_the_smallest_id_on_ties():
+    """Rows 3, 3 + 5*128 and 3 + 9*128 are equal, so they tie in bin 3 of
+    tile 0: the bin's id is row 3 for the query that is that row, and the
+    kernel's ids in that bin are the plain version's for every query."""
+    rng = np.random.default_rng(7)
+    v = rng.normal(size=(8192, 300)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    v[3 + 5 * 128] = v[3 + 9 * 128] = v[3]
+    vt = torch.as_tensor(v, device="cuda")
+    table, norms, _ = kernels.tile_table(vt)
+    q = kernels.pad_queries(vt[[3, 10, 700, 3 + 5 * 128]], table.shape[1])
+    mins, ids = kernels.fused_exact_scan(q, table, norms)
+    ref_mins, ref_ids = kernels.fused_exact_scan_plain(q, table, norms)
+    torch.cuda.synchronize()
+    assert int(ids[0, 3]) == 3 and int(ids[3, 3]) == 3
+    assert torch.equal(ids[:, 3], ref_ids[:, 3])
+    torch.testing.assert_close(mins, ref_mins, atol=1e-3, rtol=0)
+
+
 def test_wrappers_raise_on_bad_input():
     luts, codes_t = _adc_inputs(0, 2, 12, 256, 4096, torch.uint8)
     with pytest.raises(ValueError):
@@ -109,6 +136,13 @@ def test_wrappers_raise_on_bad_input():
     with pytest.raises(ValueError):
         kernels.fused_exact_scan(torch.zeros(2, 304, device="cuda"), table,
                                  norms)
+    with pytest.raises(ValueError, match="bins=128"):
+        kernels.adc_scan_binned(luts, codes_t, block_n=2048, bins=64)
+    wide, wide_norms, _ = kernels.tile_table(
+        torch.randn(100, 456, device="cuda"))
+    with pytest.raises(ValueError, match="448"):
+        kernels.fused_exact_scan(kernels.pad_queries(wide[:2].float(), 456),
+                                 wide, wide_norms)
 
 
 def test_engine_on_cuda_matches_cpu(tmp_path):
@@ -119,7 +153,8 @@ def test_engine_on_cuda_matches_cpu(tmp_path):
 
     rng = np.random.default_rng(0)
     v = rng.normal(size=(20000, 48)).astype(np.float32)
-    store = VectorStore.from_arrays([f"w{i}" for i in range(len(v))], v)
+    store = VectorStore.from_arrays([f"w{i}" for i in range(len(v))], v,
+                                    device="cpu")
     cpu = Freddy.build(store, with_ivfadc=False, with_ivpq=False, pq_m=12,
                        pq_k=256, train_size=None, iters=4, opq_iters=2)
     cpu.save(tmp_path)
@@ -327,7 +362,8 @@ def test_probe_engine_on_cuda_matches_cpu(tmp_path, monkeypatch):
     c = rng.normal(size=(64, 48))
     v = (c[rng.integers(0, 64, 20000)]
          + 0.6 * rng.normal(size=(20000, 48))).astype(np.float32)
-    store = VectorStore.from_arrays([f"w{i}" for i in range(len(v))], v)
+    store = VectorStore.from_arrays([f"w{i}" for i in range(len(v))], v,
+                                    device="cpu")
     cpu = Freddy.build(store, with_pq=False, ivfadc_m=12, ivfadc_k=64,
                        k_coarse=64, ivpq_m=12, ivpq_k=16, ivpq_k_coarse=64,
                        ivpq_coarse_positions=1, train_size=None, iters=4)

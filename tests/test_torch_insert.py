@@ -88,7 +88,7 @@ def test_pq_add_matches_jax():
     idx = pq_from_numpy({"centroids": np.asarray(jidx.codebook.centroids),
                          "counts": np.asarray(jidx.codebook.counts),
                          "codes": np.asarray(jidx.codes),
-                         "rotation": np.asarray(jidx.rotation)})
+                         "rotation": np.asarray(jidx.rotation)}, device="cpu")
     new = _new_rows(1, 25)
     idx.transposed_codes()                       # a cached layout to drop
     got, want = idx.add(to_torch(new)), jidx.add(to_jax(new))
@@ -113,7 +113,8 @@ def test_ivpq_add_matches_jax():
         "cell_counts": np.asarray(jidx.coarse.cell_counts),
         "centroids": np.asarray(jidx.codebook.centroids),
         "counts": np.asarray(jidx.codebook.counts),
-        "codes": np.asarray(jidx.codes), "cell_of": np.asarray(jidx.cell_of)})
+        "codes": np.asarray(jidx.codes), "cell_of": np.asarray(jidx.cell_of)},
+        device="cpu")
     new = _new_rows(2, 30)
     got, want = idx.add(to_torch(new)), jidx.add(to_jax(new))
     _same_codebook(got.codebook, want.codebook)
@@ -184,7 +185,7 @@ def ivf_pair(tmp_path_factory):
                                      iters=4)
     path = tmp_path_factory.mktemp("ivf_insert") / "ivfadc.npz"
     jidx.save(path)
-    return x, jidx, IVFADCIndex.load(path)
+    return x, jidx, IVFADCIndex.load(path, device="cpu")
 
 
 def _same_csr(got: IVFADCIndex, want) -> None:
@@ -264,7 +265,7 @@ def test_store_extend_matches_jax(rng):
     """Mirrors tests/test_store_io.py:65-112."""
     words = [f"t{i}" for i in range(50)]
     vecs = rng.normal(size=(50, 16)).astype(np.float32)
-    s = VectorStore.from_arrays(words, vecs)
+    s = VectorStore.from_arrays(words, vecs, device="cpu")
     js = JStore.from_arrays(words, vecs)
     s3, j3 = s.extend(["n1"], vecs[:1] * 2), js.extend(["n1"], vecs[:1] * 2)
     assert s3.size == 51 and s3.get_id("n1") == 50 and s.size == 50
@@ -357,7 +358,7 @@ def test_insert_batch_matches_jax(engine_dirs, dtype):
     """A JAX engine saved with every index, loaded in the port: both
     insert the same multi-word terms (duplicates, known words and all-OOV
     terms skipped) and then answer alike on new and old words."""
-    port, jeng = Freddy.load(engine_dirs[dtype]), JFreddy.load(
+    port, jeng = Freddy.load(engine_dirs[dtype], device="cpu"), JFreddy.load(
         engine_dirs[dtype])
     assert port.exact.compute_dtype == dtype
     assert port.insert_batch(TERMS) == jeng.insert_batch(TERMS) == len(NEW)
@@ -375,14 +376,14 @@ def test_engine_inserted_by_jax_loads_in_the_port(engine_dirs, tmp_path):
     jeng = JFreddy.load(engine_dirs["float32"])
     jeng.insert_batch(TERMS)
     jeng.save(tmp_path / "j")                    # flushes the IVFADC tail
-    port = Freddy.load(tmp_path / "j")
+    port = Freddy.load(tmp_path / "j", device="cpu")
     assert port.ivfadc.tail_count == 0 and port.ivfadc.size == 4096 + 5
     assert port.store.size == 4096 + 5 and "w5 w6 w7" in port.store
     _same_engine_answers(port, JFreddy.load(tmp_path / "j"))
 
 
 def test_engine_inserted_by_the_port_loads_in_jax(engine_dirs, tmp_path):
-    port = Freddy.load(engine_dirs["int8"])
+    port = Freddy.load(engine_dirs["int8"], device="cpu")
     port.insert_batch(TERMS)
     port.save(tmp_path / "p")
     jeng = JFreddy.load(tmp_path / "p")
@@ -391,4 +392,4 @@ def test_engine_inserted_by_the_port_loads_in_jax(engine_dirs, tmp_path):
     np.testing.assert_array_equal(np.asarray(jeng.pq.codes), np_(port.pq.codes))
     np.testing.assert_array_equal(np.asarray(jeng.ivpq.cell_of),
                                   np_(port.ivpq.cell_of))
-    _same_engine_answers(Freddy.load(tmp_path / "p"), jeng)
+    _same_engine_answers(Freddy.load(tmp_path / "p", device="cpu"), jeng)

@@ -270,7 +270,7 @@ def pq_pair():
               "counts": np.asarray(jidx.codebook.counts),
               "codes": np.asarray(jidx.codes),
               "rotation": np.asarray(jidx.rotation)}
-    return v, jidx, pq_from_numpy(arrays)
+    return v, jidx, pq_from_numpy(arrays, device="cpu")
 
 
 def _jax_pq_int8(jidx, q, k, binned):

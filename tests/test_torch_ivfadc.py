@@ -41,7 +41,7 @@ def indexes(tmp_path_factory):
                                      train_size=None, iters=5)
     path = tmp_path_factory.mktemp("ivf") / "ivfadc.npz"
     jidx.save(path)
-    return x, jidx, IVFADCIndex.load(path)
+    return x, jidx, IVFADCIndex.load(path, device="cpu")
 
 
 def test_cross_load_keeps_every_field(indexes):
@@ -136,7 +136,8 @@ def test_save_round_trips_through_jax(indexes, tmp_path):
         b = np.asarray(getattr(jidx, name))
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
-    again = ivfadc_from_numpy(dict(np.load(tmp_path / "port.npz")))
+    again = ivfadc_from_numpy(dict(np.load(tmp_path / "port.npz")),
+                              device="cpu")
     assert torch.equal(again.codes_sorted, idx.codes_sorted)
 
 

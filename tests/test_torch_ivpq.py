@@ -42,7 +42,7 @@ def join_case(tmp_path_factory):
                                  train_size=None, iters=5)
     path = tmp_path_factory.mktemp("ivpq") / "ivpq.npz"
     jidx.save(path)
-    idx = IVPQIndex.load(path)
+    idx = IVPQIndex.load(path, device="cpu")
     tids = np.arange(0, N, 2).astype(np.int32)
     jstats = jivpq.build_statistics(jidx.cell_of, to_jax(tids),
                                     jidx.num_cells)

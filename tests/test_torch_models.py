@@ -106,7 +106,7 @@ def _jax_pq(eng_path):
 def test_pq_search_matches_jax(saved_jax_engine, impl):
     eng, path = saved_jax_engine
     arrays, jindex = _jax_pq(path)
-    index = pq_from_numpy(arrays)
+    index = pq_from_numpy(arrays, device="cpu")
     assert index.codes.dtype == torch.uint8 and index.rotation is not None
     q = np.asarray(eng.store.vectors_norm[:9])
     got = index.search(to_torch(q), 10, impl=impl)
@@ -117,7 +117,7 @@ def test_pq_search_matches_jax(saved_jax_engine, impl):
 def test_pq_binned_search_keeps_the_global_min(saved_jax_engine):
     eng, path = saved_jax_engine
     arrays, jindex = _jax_pq(path)
-    index = pq_from_numpy(arrays)
+    index = pq_from_numpy(arrays, device="cpu")
     q = to_torch(np.asarray(eng.store.vectors_norm[:9]))
     d_b, i_b = index.search(q, 10, impl="kernel_binned")
     d_e, _ = index.search(q, 10, impl="plain")
@@ -129,7 +129,7 @@ def test_pq_binned_search_keeps_the_global_min(saved_jax_engine):
 def test_pq_search_pv_matches_jax(saved_jax_engine, shortlist):
     eng, path = saved_jax_engine
     arrays, jindex = _jax_pq(path)
-    index = pq_from_numpy(arrays)
+    index = pq_from_numpy(arrays, device="cpu")
     v = np.asarray(eng.store.vectors_norm)
     q = v[100:108]
     got = index.search_pv(to_torch(q), 5, 20, to_torch(v), impl="kernel",
@@ -145,7 +145,7 @@ def test_pq_search_pv_matches_jax(saved_jax_engine, shortlist):
 def test_pq_save_load_round_trips_with_jax(saved_jax_engine, tmp_path):
     _, path = saved_jax_engine
     arrays, _ = _jax_pq(path)
-    index = PQIndex.load(path / "pq.npz")
+    index = PQIndex.load(path / "pq.npz", device="cpu")
     index.save(tmp_path / "port.npz")
     back = jpq.PQIndex.load(tmp_path / "port.npz")
     np.testing.assert_array_equal(np.asarray(back.codes), arrays["codes"])
@@ -177,7 +177,7 @@ def test_pq_build_in_the_port(rng):
                                     "k_nearest_neighbour_pq_pv"])
 def test_jax_engine_loads_in_the_port(saved_jax_engine, family):
     eng, path = saved_jax_engine
-    port = Freddy.load(path)
+    port = Freddy.load(path, device="cpu")
     eng.set_knn_function(family)
     port.set_knn_function(family)
     try:
@@ -206,7 +206,7 @@ def _same_knn(eng, port, atol=1e-5):
 
 def test_knn_batch_exact_matches_jax(saved_jax_engine):
     eng, path = saved_jax_engine
-    port = Freddy.load(path)
+    port = Freddy.load(path, device="cpu")
     words = ["w1", "w2", "w3"]
     got, want = port.knn_batch_exact(words, 4), eng.knn_batch_exact(words, 4)
     assert [r[0] for r in got] == [r[0] for r in want]
@@ -216,7 +216,7 @@ def test_knn_batch_exact_matches_jax(saved_jax_engine):
 
 def test_vector_queries_match_jax(saved_jax_engine, rng):
     eng, path = saved_jax_engine
-    port = Freddy.load(path)
+    port = Freddy.load(path, device="cpu")
     assert port.dispatch["knn"] == eng.dispatch["knn"]
     vec = rng.normal(size=D).astype(np.float32)
     got, want = port.knn(vec, 5), eng.knn(vec, 5)
@@ -226,12 +226,12 @@ def test_vector_queries_match_jax(saved_jax_engine, rng):
 
 def test_engine_save_load_round_trip(saved_jax_engine, tmp_path):
     _, path = saved_jax_engine
-    port = Freddy.load(path)
+    port = Freddy.load(path, device="cpu")
     port.set_pvf(7)
     port.set_pv_shortlist("exact")
     port.set_knn_function("k_nearest_neighbour_pq_pv")
     port.save(tmp_path / "e")
-    back = Freddy.load(tmp_path / "e")
+    back = Freddy.load(tmp_path / "e", device="cpu")
     assert back.params.pvf == 7 and back.params.pv_shortlist == "exact"
     assert back.dispatch["knn"] == "k_nearest_neighbour_pq_pv"
     assert back.knn("w5", 5) == port.knn("w5", 5)
@@ -243,7 +243,8 @@ def test_engine_save_load_round_trip(saved_jax_engine, tmp_path):
 
 def test_port_build_runs_the_slice(rng):
     words = [f"w{i}" for i in range(2048)]
-    store = VectorStore.from_arrays(words, _clustered(rng, n=2048))
+    store = VectorStore.from_arrays(words, _clustered(rng, n=2048),
+                                    device="cpu")
     eng = Freddy.build(store, with_ivfadc=False, with_ivpq=False, pq_m=12,
                        pq_k=16, train_size=None, iters=4, opq_iters=2)
     assert eng.knn("w3", 3)[0][0] == "w3"
@@ -257,7 +258,7 @@ def test_port_build_runs_the_slice(rng):
 def test_every_jax_engine_method_exists_or_raises(saved_jax_engine):
     import inspect
     _, path = saved_jax_engine
-    port = Freddy.load(path)
+    port = Freddy.load(path, device="cpu")
     public = [n for n, v in inspect.getmembers(JFreddy)
               if not n.startswith("_") and callable(v)]
     for name in public:
@@ -271,7 +272,7 @@ def test_unported_families_raise(saved_jax_engine):
     """What the slices so far left out raises and names its ROADMAP item:
     the mesh and anisotropic refinement."""
     _, path = saved_jax_engine
-    store = Freddy.load(path).store
+    store = Freddy.load(path, device="cpu").store
     with pytest.raises(NotImplementedError, match="sharding"):
         Freddy.build(store, mesh=object())
     with pytest.raises(NotImplementedError, match="anisotropic"):
@@ -292,11 +293,11 @@ def test_jax_engine_with_int8_luts_loads_on_a_cuda_engine(saved_jax_engine,
         eng.save(tmp_path)
     finally:
         eng.set_pq_lut_dtype("bf16")
-    cpu = Freddy.load(tmp_path)
+    cpu = Freddy.load(tmp_path, device="cpu")
     assert cpu.params.pq_lut_dtype == "int8" and cpu._pq_impl() is None
     monkeypatch.setattr(VectorStore, "device",
                         property(lambda self: torch.device("cuda")))
-    port = Freddy.load(tmp_path)
+    port = Freddy.load(tmp_path, device="cpu")
     assert port.params.pq_lut_dtype == "int8"
     assert port._pq_impl() == "kernel_int8"
     with pytest.raises(ValueError, match="pq_lut_dtype"):
@@ -309,7 +310,7 @@ def test_jax_engine_with_int8_exact_loads(saved_jax_engine, tmp_path):
     eng, _ = saved_jax_engine
     JFreddy(eng.store, pq=eng.pq, exact_dtype="int8").save(tmp_path)
     jeng = JFreddy.load(tmp_path)
-    port = Freddy.load(tmp_path)
+    port = Freddy.load(tmp_path, device="cpu")
     assert port.exact.compute_dtype == "int8"
     _same_knn(jeng, port)
 
@@ -352,7 +353,7 @@ def _same_join(got, want, port, eng, names, k, atol=1e-4):
 
 def test_probe_engine_loads_in_the_port(saved_probe_engine):
     eng, path = saved_probe_engine
-    port = Freddy.load(path)
+    port = Freddy.load(path, device="cpu")
     assert port.pq is None and port.ivfadc.num_cells == 24
     assert port.ivpq.num_cells == 64 and port.params.statistics_table == "dom"
     np.testing.assert_allclose(np_(port.statistics["dom"]),
@@ -364,7 +365,7 @@ def test_probe_engine_loads_in_the_port(saved_probe_engine):
                                     "k_nearest_neighbour_ivfadc_pv"])
 def test_ivfadc_families_match_jax(saved_probe_engine, family):
     eng, path = saved_probe_engine
-    port = Freddy.load(path)
+    port = Freddy.load(path, device="cpu")
     for e in (eng, port):
         e.set_knn_function(family)
         e.set_w(2)
@@ -379,7 +380,7 @@ def test_ivfadc_families_match_jax(saved_probe_engine, family):
 
 def test_knn_batch_matches_jax(saved_probe_engine):
     eng, path = saved_probe_engine
-    port = Freddy.load(path)
+    port = Freddy.load(path, device="cpu")
     words = [f"w{i}" for i in range(0, 400, 37)]
     assert port.dispatch["knn_batch"] == "k_nearest_neighbour_ivfadc_batch"
     _same_join(port.knn_batch(words, 6), eng.knn_batch(words, 6), port, eng,
@@ -392,7 +393,7 @@ def test_join_facades_match_jax(saved_probe_engine, method):
     active statistics, through the generic ``knn_join`` façade, and the
     single-query ``knn_in_ivpq``."""
     eng, path = saved_probe_engine
-    port = Freddy.load(path)
+    port = Freddy.load(path, device="cpu")
     words = [f"w{i}" for i in range(1, 300, 23)]
     targets = [f"w{i}" for i in range(0, N, 3)]
     for e in (eng, port):
@@ -421,7 +422,7 @@ def test_join_facades_match_jax(saved_probe_engine, method):
 
 def test_exact_join_matches_jax(saved_probe_engine):
     eng, path = saved_probe_engine
-    port = Freddy.load(path)
+    port = Freddy.load(path, device="cpu")
     words = ["w5", "w6", "w700"]
     targets = list(range(0, N, 5))
     assert port.dispatch["knn_join"] == "knn_search_in_batch"
@@ -432,14 +433,14 @@ def test_exact_join_matches_jax(saved_probe_engine):
 
 def test_probe_engine_save_load_round_trip(saved_probe_engine, tmp_path):
     _, path = saved_probe_engine
-    port = Freddy.load(path)
+    port = Freddy.load(path, device="cpu")
     port.set_alpha(9)
     port.set_confidence_value(0.6)
     port.set_long_codes_threshold(123.0)
     port.set_use_targetlist(False)
     port.create_statistics("small", ["w1", "w2", "nope"])
     port.save(tmp_path / "e")
-    back = Freddy.load(tmp_path / "e")
+    back = Freddy.load(tmp_path / "e", device="cpu")
     assert (back.params.alpha, back.params.confidence,
             back.params.long_codes_threshold, back.params.use_targetlist) == (
                 9, 0.6, 123.0, False)

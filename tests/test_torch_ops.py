@@ -267,7 +267,7 @@ def test_store_reads_and_writes_the_jax_format(rng, tmp_path):
     words = [f"w{i}" for i in range(50)]
     vecs = rng.normal(size=(50, 8)).astype(np.float32)
     JStore.from_arrays(words, vecs).save(tmp_path / "jax.npz")
-    st = VectorStore.load(tmp_path / "jax.npz")
+    st = VectorStore.load(tmp_path / "jax.npz", device="cpu")
     assert st.words == words and st.get_id("w7") == 7 and "w7" in st
     np.testing.assert_allclose(np_(st.vectors_for(["w3", "w9"])),
                                np_(jvo.vec_normalize(to_jax(vecs[[3, 9]]))),
@@ -280,7 +280,7 @@ def test_store_reads_and_writes_the_jax_format(rng, tmp_path):
     np.testing.assert_array_equal(np.asarray(back.vectors), vecs)
     assert st.get_ids(["w1", "nope"], strict=False) == [1]
     with pytest.raises(ValueError):
-        VectorStore.from_arrays(["a", "a"], vecs[:2])
+        VectorStore.from_arrays(["a", "a"], vecs[:2], device="cpu")
 
 
 def test_store_text_parser_matches_jax(rng, tmp_path):
@@ -289,7 +289,7 @@ def test_store_text_parser_matches_jax(rng, tmp_path):
     lines = ["6 4"] + [f"t{i} " + " ".join(f"{v:.6f}" for v in row)
                        for i, row in enumerate(vecs)]
     path.write_text("\n".join(lines) + "\n")
-    st = VectorStore.from_text_file(path, max_words=5)
+    st = VectorStore.from_text_file(path, max_words=5, device="cpu")
     words, want = _load_text_embeddings_py(path, 5)
     assert st.words == words
     np.testing.assert_array_equal(np_(st.vectors), want)
