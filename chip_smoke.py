@@ -28,7 +28,8 @@ a user calls, and holds every hand-written kernel to its plain version:
    by side, and each kernel alone against its plain version, with its
    bound at those shapes (HBM bytes or peak operations, the larger) and,
    for K1, one bf16 ``torch.matmul`` of the same product as a yardstick;
-   K4 at 16 and at 8 queries per block;
+   a sweep at the main shape of the queries per block (K4 at 16 and 8, K2
+   at 16 and 8, K3 at 64 and 32); K6's bound at the 3M join's shape;
 6. only with ``--profile OUT.json``: a ``torch.profiler`` window of 3
    calls per path, written to OUT.json — host wall and device time per
    call, the device's busy share, the top device kernels, and each
@@ -82,16 +83,21 @@ FLOORS = {"pq@5": 0.45, "pq_pv@5": 0.85, "fused@10": 0.95,
 # int8 recall no more than this below the same run's float-LUT recall
 INT8_DROP = {"pq_int8@5": "pq@5", "join_int8_m2_a200@5": "join_m2_a200@5"}
 INT8_MAX_DROP = 0.02
-# K4/K6/K7 sum subspaces in the plain version's order (K4 is held to bit
-# equality, ids too); K9/K10 sum 304 float32 products in another order;
+# K2/K4/K6/K7 sum subspaces in the plain version's order (K2 and K4 are held
+# to bit equality, K4's ids too); K9/K10 sum 304 float32 products in another
+# order;
 # K3/K5 sum exactly in int32 and round the one rescale as the plain version
 # does; K8 also rounds its row-term add on its own (__fmul_rn, then
 # __fadd_rn); K1 sums bf16 products on the tensor cores in another order.
-TOL = {"adc_scan": 1e-4, "adc_scan_binned": 0.0, "fused_exact_scan": 1e-3,
+TOL = {"adc_scan": 0.0, "adc_scan_binned": 0.0, "fused_exact_scan": 1e-3,
        "budget_adc": 1e-5, "budget_adc_grouped": 1e-5, "budget_exact": 1e-4,
        "budget_exact_grouped": 1e-4, "adc_scan_int8": 0.0,
        "adc_scan_binned_int8": 0.0, "budget_adc_grouped_int8": 1e-5}
 BUDGET_BOOKS = ((12, 256, "uint8"), (30, 32, "uint8"), (15, 1024, "int16"))
+# K1/K2/K4's boundary codebooks (slice 1's)
+SCAN_BOOKS = ((12, 256, "uint8"), (60, 16, "uint8"), (12, 1024, "int16"))
+# and the IVPQ join's, whose dense round K2 also serves
+JOIN_BOOKS = ((30, 32, "uint8"), (15, 1024, "int16"))
 # K3/K5's boundary codebooks: slice 1's, the budget ones and 4-bit 12×16
 I8_BOOKS = ((60, 16, "uint8"), (12, 1024, "int16"), (12, 16, "uint8"),
             *BUDGET_BOOKS)
@@ -120,6 +126,37 @@ def gpu_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     return out.stdout.strip()
+
+
+def ptxas_report(compiler_output: str, kernels: tuple[str, ...]) -> str:
+    """Registers and spill bytes that ``ptxas -v`` reported for each
+    instantiation of ``kernels`` with uint8 codes, e.g. ``adc_scan_kernel<16>
+    39 regs 0/0 spill``. Template arguments: the queries per block, then
+    ``packed``/``unpacked`` for K3's sums."""
+    out, name, spill = [], None, "?"
+    entry = re.compile(r"Compiling entry function '_Z\d+(\w+?_kernel)I(\w+?)Ev")
+    for line in compiler_output.splitlines():
+        m = entry.search(line)
+        if m:
+            name, spill = None, "?"
+            args = m.group(2)
+            if m.group(1) in kernels and args.endswith("h"):
+                args = re.sub(r"Li(\d+)E", r"\1,", args[:-1])
+                args = args.replace("Lb1E", "packed,").replace("Lb0E",
+                                                               "unpacked,")
+                name = f"{m.group(1)}<{args.rstrip(',')}>"
+            continue
+        if name is None:
+            continue
+        sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       line)
+        if sp:
+            spill = f"{sp.group(1)}/{sp.group(2)} spill"
+        rg = re.search(r"Used (\d+) registers", line)
+        if rg:
+            out.append(f"{name} {rg.group(1)} regs {spill}")
+            name = None
+    return ", ".join(out)
 
 
 def recall_at(ids, gt, k: int) -> float:
@@ -215,21 +252,23 @@ def plain_kernels(kernels):
 def boundary_checks(torch, kernels) -> None:
     """Phase 3a: K1/K2/K4 against their plain versions at the block
     boundaries N ∈ {2047, 2048, 2049, 8191, 8193}, B ∈ {1, 257}, and the
-    three codebook shapes (12×256 uint8, 60×16 uint8, 12×1024 int16)."""
+    three codebook shapes of SCAN_BOOKS (12×256 uint8, 60×16 uint8,
+    12×1024 int16); K2, which the join's dense round also calls, at
+    JOIN_BOOKS (30×32 uint8, 15×1024 int16) too."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     n_cases = 0
     for n in (2047, 2048, 2049, 8191, 8193):
         for B in (1, 257):
-            for m, k, dt in ((12, 256, torch.uint8), (60, 16, torch.uint8),
-                             (12, 1024, torch.int16)):
+            for m, k, dt in SCAN_BOOKS + JOIN_BOOKS:
                 luts = torch.rand(B, m, k, generator=g, device="cuda") * 4
-                codes_t = torch.randint(0, k, (m, n), generator=g,
-                                        device="cuda").to(dt).contiguous()
+                codes_t = torch.randint(0, k, (m, n), generator=g, device="cuda"
+                                        ).to(getattr(torch, dt)).contiguous()
                 dense = kernels.adc_scan_plain(luts, codes_t)
-                err = float((kernels.adc_scan(luts, codes_t) - dense)
-                            .abs().max())
-                check(err <= TOL["adc_scan"],
-                      f"adc_scan n={n} B={B} {m}x{k}: err {err}")
+                check(torch.equal(kernels.adc_scan(luts, codes_t), dense),
+                      f"adc_scan n={n} B={B} {m}x{k} differs")
+                n_cases += 1
+                if (m, k, dt) in JOIN_BOOKS:
+                    continue
                 mins, ids = kernels.adc_scan_binned(luts, codes_t)
                 ref, ref_ids = kernels.adc_scan_binned_plain(luts, codes_t)
                 check(torch.equal(mins, ref) and torch.equal(ids, ref_ids),
@@ -238,7 +277,7 @@ def boundary_checks(torch, kernels) -> None:
                     mins, ids, ref, lambda i: torch.gather(dense, 1, i),
                     block_n=2048, bins=128, valid_n=n,
                     atol=TOL["adc_scan_binned"])
-                n_cases += 2
+                n_cases += 1
             v = torch.nn.functional.normalize(
                 torch.randn(n, D, generator=g, device="cuda"), dim=1)
             table, norms, valid = kernels.tile_table(v)
@@ -313,14 +352,14 @@ def budget_boundary_checks(torch, kernels) -> None:
 
 def int8_boundary_checks(torch, kernels) -> None:
     """Phase 3a: K3/K5/K8 against their plain versions. K3 and K5 at
-    N ∈ {2047, 2048, 2049, 8191, 8193}, B ∈ {1, 33, 257} and the codebooks
-    of I8_BOOKS (12×1024 stages 8 queries a block, 15×1024 four);
+    N ∈ {2047, 2048, 2049, 8191, 8193}, B ∈ {1, 33, 65, 257} and the
+    codebooks of I8_BOOKS (K3 stages 64 queries a block at 12×256, K5 32);
     K8 at block_t ∈ {128, 256, 1024}, B ∈ {1, 257}, the budget codebooks
     and 12×16, with the inf tile and pad rows as in the K6/K7 cases."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     n_cases = 0
     for n in (2047, 2048, 2049, 8191, 8193):
-        for B in (1, 33, 257):
+        for B in (1, 33, 65, 257):
             for m, k, dt in I8_BOOKS:
                 luts = torch.rand(B, m, k, generator=g, device="cuda") * 4
                 codes_t = torch.randint(0, k, (m, n), generator=g,
@@ -569,6 +608,10 @@ def main() -> int:
     _build.load()
     log(f"[2] kernels built in {built.seconds:.1f} s "
         f"({time.perf_counter() - t0:.1f} s with load): {built.path.name}")
+    if built.compiler_output:
+        log("[2] ptxas, uint8 codes: " + ptxas_report(
+            built.compiler_output, ("adc_scan_kernel", "adc_scan_int8_kernel",
+                                    "adc_scan_binned_kernel")))
 
     # ---------------------------------------------------------- 3a: edges
     boundary_checks(torch, kernels)
@@ -613,10 +656,11 @@ def main() -> int:
     codes_t = pq.transposed_codes()
     errs = {}
     dense = kernels.adc_scan_plain(luts, codes_t)
-    errs["adc_scan"] = float((kernels.adc_scan(luts, codes_t) - dense)
-                             .abs().max())
-    check(errs["adc_scan"] <= TOL["adc_scan"],
-          f"adc_scan main path: err {errs['adc_scan']}")
+    got = kernels.adc_scan(luts, codes_t)
+    errs["adc_scan"] = float((got - dense).abs().max())
+    check(torch.equal(got, dense), f"adc_scan main path: differs from the "
+          f"plain version, max abs err {errs['adc_scan']}")
+    del got
     mins, ids = kernels.adc_scan_binned(luts, codes_t)
     ref, ref_ids = kernels.adc_scan_binned_plain(luts, codes_t)
     check(torch.equal(ids, ref_ids), "adc_scan_binned main path: ids differ "
@@ -1009,23 +1053,51 @@ def main() -> int:
     log(f"[5] library for fused_exact_scan: bf16 torch.matmul "
         f"{tuple(qb.shape)} x {tuple(fused._tiled.t().shape)} "
         f"{library_ms['fused_exact_scan']:.3f} ms on {card}")
-    # K4's queries per block, swept at the main shape through the C entry
-    # point that takes it (the wrapper lets the kernel choose: 16 here)
+    # The queries per block of K4, K2 and K3, swept at the main shape
+    # through the C entry points that take them (the wrappers let the
+    # kernels choose: 16 for K4 and K2, 64 for K3)
     lib = _build.load()
     sweep_out = kernels.adc_scan_binned(luts, codes_t)
+    dense_out = torch.empty(EVAL_Q, N, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    mk = (luts.shape[1], luts.shape[2])
+
+    def k4_at(qblk):
+        return lib.pw2v_adc_scan_binned_qb(
+            luts.data_ptr(), codes_t.data_ptr(), codes_t.element_size(),
+            sweep_out[0].data_ptr(), sweep_out[1].data_ptr(), EVAL_Q, *mk,
+            N, 2048, 128, qblk, stream)
+
+    def k2_at(qblk):
+        return lib.pw2v_adc_scan_qb(
+            luts.data_ptr(), codes_t.data_ptr(), codes_t.element_size(),
+            dense_out.data_ptr(), EVAL_Q, *mk, N, qblk, stream)
+
+    def k3_at(qblk):
+        return lib.pw2v_adc_scan_int8_qb(
+            ql.data_ptr(), sc.data_ptr(), codes_t.data_ptr(),
+            codes_t.element_size(), dense_out.data_ptr(), EVAL_Q, *mk, N,
+            qblk, stream)
+
     sweep = {}
-    for qblk in (16, 8):
-        def k4_at(qblk=qblk):
-            err = lib.pw2v_adc_scan_binned_qb(
-                luts.data_ptr(), codes_t.data_ptr(), codes_t.element_size(),
-                sweep_out[0].data_ptr(), sweep_out[1].data_ptr(), EVAL_Q,
-                luts.shape[1], luts.shape[2], N, 2048, 128, qblk,
-                torch.cuda.current_stream().cuda_stream)
-            check(err == 0, f"adc_scan_binned qb={qblk}: CUDA error {err}")
-        sweep[qblk] = p50(cuda_ms(torch, k4_at, reps=3))
-    log(f"[5] K4 queries per block at B={EVAL_Q}, 12x256: " + ", ".join(
-        f"qb={q} {t:.3f} ms" for q, t in sweep.items()) + f" on {card}")
-    del luts, ql, sc, sweep_out
+    for name, at, qbs in (("K4", k4_at, (16, 8)), ("K2", k2_at, (16, 8)),
+                          ("K3", k3_at, (64, 32))):
+        for qblk in qbs:
+            def run(at=at, qblk=qblk):
+                err = at(qblk)
+                check(err == 0, f"{name} qb={qblk}: CUDA error {err}")
+            sweep[f"{name} qb={qblk}"] = p50(cuda_ms(torch, run, reps=3))
+    log(f"[5] sweep at B={EVAL_Q}, 12x256: " + ", ".join(
+        f"{k} {t:.3f} ms" for k, t in sweep.items()) + f" on {card}")
+    # K6 at the 3M join's shape (10 launches per call there): its bound
+    all_row = jt_all.codes_t.shape[0] * jt_all.codes_t.element_size() + 4
+    k6_3m = bound(probe_bytes(tiles_3m, jt_all.block_t, all_row, luts_join),
+                  tiles_3m.numel() * jt_all.block_t * luts_join.shape[1],
+                  "fp32")
+    log(f"[5] bound budget_adc at the 3M join (B=512 P={tiles_3m.shape[1]} "
+        f"block_t={jt_all.block_t} 30x32): {k6_3m[0]:.4f} ms ({k6_3m[1]}) "
+        f"on {card}")
+    del luts, ql, sc, sweep_out, dense_out
 
     def joined(method, targets, alpha, stats, lut_dtype="bf16"):
         def go():
@@ -1134,6 +1206,7 @@ def main() -> int:
     log(f"[8] the whole run took {time.perf_counter() - started:.1f} s")
     log(json.dumps({"recall": rec, "paths_ms_per_query": times,
                     "insert": inserted, "path_launches": path_launches,
+                    "sweep_ms": sweep, "budget_adc_bound_3m_join": k6_3m,
                     "gpu": card}))
     log(json.dumps(summary))
     log(json.dumps({"ok": True, "device": {

@@ -36,58 +36,55 @@
 // (m x 1024 bytes at 12x256), double-buffered, so the copy of the next slab
 // overlaps the lookups of this one. Each row's sum runs over subspaces
 // j = 0..m-1 in order, so the minima equal the plain version's bit for bit.
+// The walk is adc_walk (adc_common.cuh), shared with K2 and K3, which differ
+// only in their lookups and epilogue; K4's epilogue is AdcBinMin below.
 #include "adc_common.cuh"
 
-#define AB_BINS 128  // bins per tile: one thread group each
-#define AB_WAVES 4   // blocks launched per SM slot, for balance
+#define AB_BINS ADC_ROWS  // bins per tile: one thread group each
 
-__device__ __forceinline__ uint32_t ab_smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+// K4's epilogue: per thread and query the bin's min and its step s, kept in
+// registers over the tile's rows (a strict <, rows in increasing s: the
+// smallest id on ties) and written at the tile's end.
+template <int F>
+struct AdcBinMin {
+  float* mins;
+  int* ids;
+  long long n_out;  // bins of all tiles
+  int b0, nq, block_n, j, v;
+  float best[F];
+  int arg[F];
 
-// 16 bytes global -> shared, of which the first `bytes` are read and the
-// rest zero-filled.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
+  __device__ __forceinline__ void tile_begin(long long) {
+#pragma unroll
+    for (int i = 0; i < F; ++i) {
+      best[i] = __int_as_float(0x7f800000);  // +inf
+      arg[i] = 0;
+    }
+  }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
+  template <typename Look>
+  __device__ __forceinline__ void row(const Look& look, int s) {
+#pragma unroll
+    for (int i = 0; i < F; ++i) {
+      if (look.acc[i] < best[i]) {
+        best[i] = look.acc[i];
+        arg[i] = s;
+      }
+    }
+  }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// Shared memory of a block: QB staged LUTs, then two code slabs.
-__host__ __device__ inline size_t ab_lut_bytes(int qb, int m, int k) {
-  return ((size_t)qb * m * k * sizeof(float) + 15) / 16 * 16;
-}
-
-static inline size_t ab_smem(int qb, int m, int k, int cb, int slab) {
-  return ab_lut_bytes(qb, m, k) + 2 * (size_t)m * slab * AB_BINS * cb;
-}
-
-// Queries per block for an (m, k) codebook: the largest of 16, 8, 4, 2 and
-// 1 whose LUTs fit beside two one-step code slabs; 0 if none does.
-static inline int ab_query_block(int m, int k, int cb) {
-  for (int qb = 16; qb >= 1; qb /= 2)
-    if (ab_smem(qb, m, k, cb, 1) <= ADC_SMEM_MAX) return qb;
-  return 0;
-}
-
-// 128-row steps per code slab: the largest of 8, 4, 2 and 1 that divides
-// the tile's steps and fits beside the LUTs; 0 if none does.
-static inline int ab_slab(int qb, int m, int k, int cb, int steps) {
-  for (int slab = 8; slab >= 1; slab /= 2)
-    if (steps % slab == 0 && ab_smem(qb, m, k, cb, slab) <= ADC_SMEM_MAX)
-      return slab;
-  return 0;
-}
+  __device__ __forceinline__ void tile_end(long long tile) {
+#pragma unroll
+    for (int i = 0; i < F; ++i) {
+      const int q = v * F + i;
+      if (q < nq) {
+        const long long o = (long long)(b0 + q) * n_out + tile * AB_BINS + j;
+        mins[o] = best[i];
+        ids[o] = (int)(tile * block_n + (long long)arg[i] * AB_BINS + j);
+      }
+    }
+  }
+};
 
 template <int QB, typename CodeT>
 __global__ void __launch_bounds__(AB_BINS * AdcF32<QB>::L)
@@ -96,114 +93,20 @@ adc_scan_binned_kernel(const float* __restrict__ luts,
                        float* __restrict__ mins, int* __restrict__ ids,
                        int B, int m, int k, long long N, int block_n,
                        long long n_tiles, int slab, int async_codes) {
-  constexpr int F = AdcF32<QB>::F;
-  constexpr int L = AdcF32<QB>::L;
+  using Look = AdcF32<QB>;
   extern __shared__ __align__(16) float lut_s[];
   const int mk = m * k;
   const int b0 = blockIdx.y * QB;
   const int nq = min(QB, B - b0);
   adc_f32_stage<QB>(lut_s, luts, b0, nq, mk);
   CodeT* code_s = reinterpret_cast<CodeT*>(
-      reinterpret_cast<char*>(lut_s) + ab_lut_bytes(QB, m, k));
-  const int rows = slab * AB_BINS;  // rows of one slab
-  const size_t slab_elems = (size_t)m * rows;
-  const int slabs = block_n / rows;  // slabs of one tile
-  const int j = threadIdx.x / L;     // this thread's bin
-  const int v = threadIdx.x % L;     // its queries: v*F .. v*F + F-1
-  // This block's tiles: blockIdx.x, + gridDim.x, ... (gridDim.x <= n_tiles)
-  const long long n_slabs =
-      ((n_tiles - 1 - blockIdx.x) / gridDim.x + 1) * slabs;
-  auto tile_of = [&](long long p) {
-    return (long long)blockIdx.x + (p / slabs) * gridDim.x;
-  };
-
-  // Copy slab p (m subspace runs of `rows` codes) into buffer p % 2. Rows
-  // past N are never read, so they are not copied.
-  auto stage = [&](long long p) {
-    CodeT* dst = code_s + (p & 1) * slab_elems;
-    const long long row0 = tile_of(p) * block_n + (p % slabs) * rows;
-    if (async_codes) {
-      const int per = rows * (int)sizeof(CodeT) / 16;
-      const long long left = (N - row0) * (long long)sizeof(CodeT);
-      for (int i = threadIdx.x; i < m * per; i += blockDim.x) {
-        const int jj = i / per;
-        const long long off = (long long)(i - jj * per) * 16;
-        if (off >= left) continue;
-        cp_async16(ab_smem_addr(reinterpret_cast<char*>(dst + (size_t)jj *
-                                                              rows) + off),
-                   reinterpret_cast<const char*>(codes + (long long)jj * N +
-                                                 row0) + off,
-                   (int)min(16LL, left - off));
-      }
-    } else {  // codes not 16-byte aligned per subspace: plain copies
-      for (int i = threadIdx.x; i < m * rows; i += blockDim.x) {
-        const int jj = i / rows;
-        const long long n = row0 + (i - jj * rows);
-        if (n < N) dst[i] = codes[(long long)jj * N + n];
-      }
-    }
-    cp_async_commit();
-  };
-
-  float best[F];
-  int arg[F];
-#pragma unroll
-  for (int i = 0; i < F; ++i) {
-    best[i] = 0.f;
-    arg[i] = 0;
-  }
-  if (n_slabs > 0) stage(0);
-  for (long long p = 0; p < n_slabs; ++p) {
-    if (p + 1 < n_slabs) {
-      stage(p + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const long long tile = tile_of(p);
-    const int sl = (int)(p % slabs);
-    if (sl == 0) {
-#pragma unroll
-      for (int i = 0; i < F; ++i) {
-        best[i] = __int_as_float(0x7f800000);  // +inf
-        arg[i] = 0;
-      }
-    }
-    const CodeT* cs = code_s + (p & 1) * slab_elems + j;
-    const long long row0 = tile * block_n + (long long)sl * rows + j;
-    for (int ss = 0; ss < slab; ++ss) {
-      if (row0 + ss * AB_BINS >= N) break;  // rows grow: the rest is padding
-      float acc[F];
-#pragma unroll
-      for (int i = 0; i < F; ++i) acc[i] = 0.f;
-      const CodeT* cr = cs + ss * AB_BINS;
-#pragma unroll 4
-      for (int jj = 0; jj < m; ++jj)
-        adc_f32_add<QB>(acc, lut_s, jj * k + (int)cr[(size_t)jj * rows], v);
-      const int s = sl * slab + ss;
-#pragma unroll
-      for (int i = 0; i < F; ++i) {
-        if (acc[i] < best[i]) {
-          best[i] = acc[i];
-          arg[i] = s;
-        }
-      }
-    }
-    if (sl == slabs - 1) {
-      const long long n_out = n_tiles * AB_BINS;
-#pragma unroll
-      for (int i = 0; i < F; ++i) {
-        const int q = v * F + i;
-        if (q < nq) {
-          const long long o = (long long)(b0 + q) * n_out + tile * AB_BINS + j;
-          mins[o] = best[i];
-          ids[o] = (int)(tile * block_n + (long long)arg[i] * AB_BINS + j);
-        }
-      }
-    }
-    __syncthreads();  // every thread is done with buffer p % 2
-  }
+      reinterpret_cast<char*>(lut_s) + adc_lut_bytes(QB, mk, sizeof(float)));
+  const int v = threadIdx.x % Look::L;
+  Look look{lut_s, v};
+  AdcBinMin<Look::F> epi{mins, ids, n_tiles * AB_BINS, b0, nq, block_n,
+                         (int)threadIdx.x / Look::L, v};
+  adc_walk<Look::L>(look, epi, codes, code_s, m, k, N, block_n, n_tiles,
+                    slab, async_codes);
 }
 
 template <int QB, typename CodeT>
@@ -212,30 +115,21 @@ static cudaError_t launch_qb(const float* luts, const void* codes,
                              long long N, int block_n, cudaStream_t stream) {
   constexpr int threads = AB_BINS * AdcF32<QB>::L;
   const int cb = (int)sizeof(CodeT);
-  const int slab = ab_slab(QB, m, k, cb, block_n / AB_BINS);
+  const size_t lut = (size_t)QB * m * k * sizeof(float);
+  const int slab = adc_walk_slab(lut, m, cb, block_n / AB_BINS);
   if (slab == 0) return cudaErrorInvalidValue;
-  const size_t smem = ab_smem(QB, m, k, cb, slab);
+  const size_t smem = adc_walk_smem(lut, m, cb, slab);
   cudaError_t err = adc_allow_smem(adc_scan_binned_kernel<QB, CodeT>, smem);
   if (err != cudaSuccess) return err;
   const long long n_tiles = (N + block_n - 1) / block_n;
   const long long gy = (B + QB - 1) / QB;
-  if (gy > 65535) return cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
+  unsigned gx = 0;
+  err = adc_walk_blocks(smem, threads, gy, n_tiles, &gx);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  long long per_sm = (long long)(ADC_SMEM_MAX / smem);
-  if (per_sm > 2048 / threads) per_sm = 2048 / threads;
-  if (per_sm < 1) per_sm = 1;
-  long long gx = ((long long)sms * per_sm * AB_WAVES + gy - 1) / gy;
-  if (gx > n_tiles) gx = n_tiles;  // n_tiles < 2^31: N is a long long of rows
-  const int async_codes =
-      reinterpret_cast<uintptr_t>(codes) % 16 == 0 && (N * cb) % 16 == 0;
   adc_scan_binned_kernel<QB, CodeT>
-      <<<dim3((unsigned)gx, (unsigned)gy), threads, smem, stream>>>(
+      <<<dim3(gx, (unsigned)gy), threads, smem, stream>>>(
           luts, static_cast<const CodeT*>(codes), mins, ids, B, m, k, N,
-          block_n, n_tiles, slab, async_codes);
+          block_n, n_tiles, slab, adc_async_codes(codes, N, cb));
   return cudaGetLastError();
 }
 
@@ -247,7 +141,9 @@ static cudaError_t launch(const float* luts, const void* codes, float* mins,
   if (B < 1 || N < 1 || m < 1 || k < 1 || bins != AB_BINS ||
       block_n < AB_BINS || block_n % AB_BINS != 0)
     return cudaErrorInvalidValue;
-  if (qb == 0) qb = ab_query_block(m, k, (int)sizeof(CodeT));
+  if (qb == 0)
+    qb = adc_walk_query_block(16, 1, (size_t)m * k * sizeof(float), m,
+                              (int)sizeof(CodeT));
   switch (qb) {
     case 16: return launch_qb<16, CodeT>(luts, codes, mins, ids, B, m, k, N,
                                          block_n, stream);

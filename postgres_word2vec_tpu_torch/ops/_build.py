@@ -34,6 +34,7 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 #: as c_void_p, sizes as c_int / c_int64). Each returns a cudaError_t.
 SIGNATURES = {
     "pw2v_adc_scan": (_P, _P, _I, _P, _I, _I, _I, _I64, _P),
+    "pw2v_adc_scan_qb": (_P, _P, _I, _P, _I, _I, _I, _I64, _I, _P),
     "pw2v_adc_scan_binned": (_P, _P, _I, _P, _P, _I, _I, _I, _I64, _I, _I,
                              _P),
     "pw2v_adc_scan_binned_qb": (_P, _P, _I, _P, _P, _I, _I, _I, _I64, _I,
@@ -47,6 +48,7 @@ SIGNATURES = {
     "pw2v_budget_exact_grouped": (_P, _P, _P, _P, _P, _P, _I, _I, _I64, _I,
                                   _I, _I, _P),
     "pw2v_adc_scan_int8": (_P, _P, _P, _I, _P, _I, _I, _I, _I64, _P),
+    "pw2v_adc_scan_int8_qb": (_P, _P, _P, _I, _P, _I, _I, _I, _I64, _I, _P),
     "pw2v_adc_scan_binned_int8": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I64,
                                   _I, _I, _P),
     "pw2v_budget_adc_grouped_int8": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I,

@@ -6,8 +6,8 @@ imports): ``python -m pytest tests/test_torch_cuda_kernels.py -q
 --noconftest``.
 
 Tolerances:
-- K2 dense ADC: atol 1e-4 on the float32 sums (the kernel sums subspaces
-  in the plain version's order, so they agree far closer in practice);
+- K2 dense ADC: equal to the plain version (the kernel sums subspaces in
+  the plain version's order), at every query block of every entry point;
 - K4 binned ADC: mins and ids equal to the plain version's (subspaces
   summed in its order, the smallest id on ties), and the binned contract:
   every id lies in its own bin and points at a row whose dense distance
@@ -21,10 +21,11 @@ Tolerances:
 - K9 / K10 budget exact: atol 1e-4 on the finite shifted scores and the
   same +inf entries (float32 queries, bf16 rows widened exactly, float32
   sums over 304 products in another order than the plain matmul's);
-- K3 / K5 / K8 over int8 LUTs: exact int32 sums and the plain version's
-  rounding of the rescale (and of K8's row-term add), so K3 and K5 are held
-  to equality (mins, ids and +inf / −1 slots) and K8 to atol 1e-5 on the
-  finite entries with the same +inf entries.
+- K3 / K5 / K8 over int8 LUTs: exact integer sums (K3's packed 16-bit
+  lanes too, at m up to 258, and its unpacked sums past it) and the plain
+  version's rounding of the rescale (and of K8's row-term add), so K3 and
+  K5 are held to equality (mins, ids and +inf / −1 slots) and K8 to atol
+  1e-5 on the finite entries with the same +inf entries.
 """
 
 import numpy as np
@@ -41,13 +42,15 @@ pytestmark = [
 
 N_EDGES = (2047, 2048, 2049, 8191, 8193)
 B_EDGES = (1, 257)
-# K4 stages 16 queries a block at 12x256 (4 at 12x1024): ragged blocks too
+# K2 and K4 stage 16 queries a block at 12x256 (4 at 12x1024): ragged blocks
 K4_B = (1, 16, 17, 33, 257)
 # K1 takes 128 queries a block, 64 a warpgroup, and 8192-row tiles
 K1_N = (8191, 8192, 8193, 3 * 8192 + 5)
 K1_B = (1, 63, 64, 65, 128, 257, 1024)
 CODEBOOKS = ((12, 256, torch.uint8), (60, 16, torch.uint8),
              (12, 1024, torch.int16))
+# K2 also serves the IVPQ join's dense round: its fine and fused-pair books
+DENSE_BOOKS = CODEBOOKS + ((30, 32, torch.uint8), (15, 1024, torch.int16))
 BLOCKS = (128, 256, 1024)
 # IVFADC residuals, the IVPQ join's fine codebook, its fused-pair LUTs.
 BUDGET_BOOKS = ((12, 256, torch.uint8), (30, 32, torch.uint8),
@@ -62,16 +65,63 @@ def _adc_inputs(seed, B, m, k, n, dtype):
 
 
 @pytest.mark.parametrize("n", N_EDGES)
-@pytest.mark.parametrize("B", B_EDGES)
-@pytest.mark.parametrize("m,k,dtype", CODEBOOKS)
+@pytest.mark.parametrize("B", K4_B)
+@pytest.mark.parametrize("m,k,dtype", DENSE_BOOKS)
 def test_adc_scan_matches_plain(n, B, m, k, dtype):
     luts, codes_t = _adc_inputs(n + B + m, B, m, k, n, dtype)
     before = kernels.KERNELS["adc_scan"].launches
     got = kernels.adc_scan(luts, codes_t)
     torch.cuda.synchronize()
     assert kernels.KERNELS["adc_scan"].launches == before + 1
-    want = kernels.adc_scan_plain(luts, codes_t)
-    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    assert torch.equal(got, kernels.adc_scan_plain(luts, codes_t))
+
+
+def _misaligned_codes(seed, m, k, n, dtype):
+    """An (m, n) code table that is a contiguous view one element into its
+    buffer, so its rows are not 16-byte aligned."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    buf = torch.randint(0, k, (m * n + 1,), generator=g, device="cuda")
+    codes_t = buf.to(dtype)[1:].view(m, n)
+    assert codes_t.is_contiguous() and codes_t.data_ptr() % 16 != 0
+    return codes_t
+
+
+@pytest.mark.parametrize("lut_dtype", ("bf16", "int8"))
+@pytest.mark.parametrize("m,k,dtype", ((12, 256, torch.uint8),
+                                       (12, 1024, torch.int16)))
+def test_dense_adc_takes_unaligned_codes(lut_dtype, m, k, dtype):
+    """K2 and K3 copy the codes without cp.async when a subspace's run is
+    not 16-byte aligned: here N·code_bytes is a multiple of 16 but the
+    table starts one element into its buffer."""
+    n, B = 4096, 33
+    codes_t = _misaligned_codes(n + m, m, k, n, dtype)
+    luts = torch.rand(B, m, k, generator=torch.Generator(
+        device="cuda").manual_seed(m), device="cuda") * 4.0
+    got = kernels.adc_scan(luts, codes_t, lut_dtype=lut_dtype)
+    torch.cuda.synchronize()
+    if lut_dtype == "int8":
+        ql, sc = kernels.quantize_luts_int8(luts)
+        want = kernels.adc_scan_plain(ql, codes_t, scale=sc)
+    else:
+        want = kernels.adc_scan_plain(luts, codes_t)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("qb", (16, 8, 4, 2, 1))
+def test_adc_scan_every_query_block_matches_plain(qb):
+    """K2 at each queries-per-block through the sweep entry point (the
+    wrapper chooses 16 at 12x256)."""
+    from postgres_word2vec_tpu_torch.ops import _build
+
+    B, m, k, n = 37, 12, 256, 3001
+    luts, codes_t = _adc_inputs(qb, B, m, k, n, torch.uint8)
+    out = torch.full((B, n), float("nan"), device="cuda")
+    err = _build.load().pw2v_adc_scan_qb(
+        luts.data_ptr(), codes_t.data_ptr(), 1, out.data_ptr(), B, m, k, n,
+        qb, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(out, kernels.adc_scan_plain(luts, codes_t))
 
 
 @pytest.mark.parametrize("n", N_EDGES)
@@ -424,8 +474,9 @@ def _i8_inputs(seed, B, m, k, n, dtype):
     return (*kernels.quantize_luts_int8(luts), codes_t)
 
 
+# K3 stages 64 queries a block at 12x256, 32 at 30x32 and 60x16
 @pytest.mark.parametrize("n", N_EDGES)
-@pytest.mark.parametrize("B", (1, 33, 257))
+@pytest.mark.parametrize("B", (1, 33, 63, 64, 65, 257))
 @pytest.mark.parametrize("m,k,dtype", I8_BOOKS)
 def test_adc_scan_int8_matches_plain(n, B, m, k, dtype):
     ql, sc, codes_t = _i8_inputs(3 * n + B + m, B, m, k, n, dtype)
@@ -434,6 +485,41 @@ def test_adc_scan_int8_matches_plain(n, B, m, k, dtype):
     torch.cuda.synchronize()
     assert kernels.KERNELS["adc_scan_int8"].launches == before + 1
     assert torch.equal(got, kernels.adc_scan_plain(ql, codes_t, scale=sc))
+
+
+@pytest.mark.parametrize("m", (12, 258, 259, 300))
+def test_adc_scan_int8_packed_lanes_stay_exact(m):
+    """K3 sums two biased bytes per 32-bit word while m·254 < 65536 (m ≤
+    258) and one int32 per query past that. Query 0's LUT is all +127 and
+    query 1's all −127 (the lanes' two extremes), the rest signed."""
+    B, k, n = 70, 16, 2053
+    g = torch.Generator(device="cuda").manual_seed(m)
+    luts = torch.rand(B, m, k, generator=g, device="cuda") * 8.0 - 4.0
+    luts[0], luts[1] = 4.0, -4.0
+    ql, sc = kernels.quantize_luts_int8(luts)
+    assert int(ql[0].min()) == 127 and int(ql[1].max()) == -127
+    codes_t = torch.randint(0, k, (m, n), generator=g,
+                            device="cuda").to(torch.uint8)
+    got = kernels.adc_scan_int8(ql, sc, codes_t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kernels.adc_scan_plain(ql, codes_t, scale=sc))
+
+
+@pytest.mark.parametrize("qb", (64, 32, 16, 8, 4))
+def test_adc_scan_int8_every_query_block_matches_plain(qb):
+    """K3 at each queries-per-block through the sweep entry point (the
+    wrapper chooses 64 at 12x256)."""
+    from postgres_word2vec_tpu_torch.ops import _build
+
+    B, m, k, n = 133, 12, 256, 3001
+    ql, sc, codes_t = _i8_inputs(qb, B, m, k, n, torch.uint8)
+    out = torch.full((B, n), float("nan"), device="cuda")
+    err = _build.load().pw2v_adc_scan_int8_qb(
+        ql.data_ptr(), sc.data_ptr(), codes_t.data_ptr(), 1, out.data_ptr(),
+        B, m, k, n, qb, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(out, kernels.adc_scan_plain(ql, codes_t, scale=sc))
 
 
 @pytest.mark.parametrize("n", N_EDGES)

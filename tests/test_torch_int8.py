@@ -46,9 +46,11 @@ from postgres_word2vec_tpu_torch.utils.convert import pq_from_numpy
 from test_torch_parity_util import assert_same_top_k, np_, to_jax, to_torch
 
 
-def _luts(rng, B, m, k, d=48):
+def _luts(rng, B, m, k, d=None):
     """LUTs of unit-norm queries against a codebook of the same scale, so
-    distances are O(1) as in the engine (at most 4)."""
+    distances are O(1) as in the engine (at most 4). Queries are
+    m·(48 // m) wide unless ``d`` is given (48 at m = 12)."""
+    d = m * max(1, 48 // m) if d is None else d
     cb = (rng.normal(size=(m, k, d // m)) / np.sqrt(d)).astype(np.float32)
     q = rng.normal(size=(B, d))
     q = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
@@ -84,11 +86,16 @@ def test_quantize_luts_int8_matches_jax(rng, k):
 # (B, k, n): uint8 codes at k = 16, 32 and 256, int16 codes at k = 1024;
 # ragged B (not a multiple of 8) and ragged N (not a multiple of 2048).
 SCAN_CASES = [(5, 16, 4096), (3, 32, 2049), (9, 256, 6000), (4, 1024, 2047)]
+# K3 sums m biased bytes per 16-bit lane, so the dense scan is also held to
+# JAX at the port's larger m: the join's 30×32 codebook and 60×16.
+DENSE_CASES = ([pytest.param(12, *c, id="-".join(map(str, c)))
+                for c in SCAN_CASES]
+               + [pytest.param(30, 3, 32, 2049, id="m30-3-32-2049"),
+                  pytest.param(60, 5, 16, 4096, id="m60-5-16-4096")])
 
 
-@pytest.mark.parametrize("B,k,n", SCAN_CASES)
-def test_plain_adc_scan_int8_matches_pallas_interpret(rng, B, k, n):
-    m = 12
+@pytest.mark.parametrize("m,B,k,n", DENSE_CASES)
+def test_plain_adc_scan_int8_matches_pallas_interpret(rng, m, B, k, n):
     luts, codes = _luts(rng, B, m, k), _codes(rng, n, m, k)
     got = kernels.adc_scan(to_torch(luts), to_torch(codes.T).contiguous(),
                            lut_dtype="int8")

@@ -36,17 +36,21 @@ from test_torch_parity_util import (assert_binned_contract,
 
 
 def _adc_case(rng, B, m, k, n):
-    cb = rng.normal(size=(m, k, 48 // m)).astype(np.float32)
-    q = rng.normal(size=(B, 48)).astype(np.float32)
+    """LUTs of B queries of width m·(48 // m) (48 at m = 12) and random
+    codes, uint8 for k ≤ 256, else int16."""
+    cb = rng.normal(size=(m, k, max(1, 48 // m))).astype(np.float32)
+    q = rng.normal(size=(B, m * max(1, 48 // m))).astype(np.float32)
     codes = rng.integers(0, k, size=(n, m)).astype(
         np.uint8 if k <= 256 else np.int16)
     luts = np_(jlut.build_luts(to_jax(q), to_jax(cb)))
     return luts, codes
 
 
-@pytest.mark.parametrize("k", [16, 256])
-def test_plain_dense_adc_matches_pallas_interpret(rng, k):
-    m = 12
+# the PQ codebooks at m = 12, and the IVPQ join's dense round: its fine
+# 30×32 codebook and its fused-pair 15×1024 LUTs over int16 codes
+@pytest.mark.parametrize("m,k", [(12, 16), (12, 256), (30, 32), (15, 1024)],
+                         ids=["16", "256", "m30-k32", "m15-k1024"])
+def test_plain_dense_adc_matches_pallas_interpret(rng, m, k):
     luts, codes = _adc_case(rng, 5, m, k, 4096)
     got = np_(kernels.adc_scan_plain(to_torch(luts), to_torch(codes.T)))
     want = np_(pk.adc_scan_pallas(to_jax(luts), to_jax(codes.T),
