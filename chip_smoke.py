@@ -26,10 +26,14 @@ a user calls, and holds every hand-written kernel to its plain version:
    with recall against the float32 exact scan over the same targets;
 5. times: p50 per query from CUDA events, kernel and plain version side
    by side, and each kernel alone against its plain version, with its
-   bound at those shapes (HBM bytes or peak operations, the larger) and,
-   for K1, one bf16 ``torch.matmul`` of the same product as a yardstick;
+   bound at those shapes (the largest of HBM bytes, the walk kernels'
+   shared-memory lookup bytes, and peak operations) and, for K1 and K10,
+   one PyTorch call of the same product as a yardstick (a bf16
+   ``torch.matmul``; a bf16 ``torch.bmm`` over pre-gathered tiles);
    a sweep at the main shape of the queries per block (K4 at 16 and 8, K2
-   at 16 and 8, K3 at 64 and 32); K6's bound at the 3M join's shape;
+   at 16 and 8, K3 and K5 at 64 and 32) and of K10's bf16 parts per query
+   value at the join's shape (3, the kernel's; 2 and 1); K6's bound at the
+   3M join's shape;
 6. only with ``--profile OUT.json``: a ``torch.profiler`` window of 3
    calls per path, written to OUT.json — host wall and device time per
    call, the device's busy share, the top device kernels, and each
@@ -110,6 +114,9 @@ INSERT_FLOORS = {"pq_pv20_self@5": 0.9, "ivfadc_pv20_self@5": 0.8}
 # run on CUDA cores.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}
+# Shared memory delivers 128 bytes per clock on each SM (32 banks of 4
+# bytes); its rate is that times the SMs times the card's max SM clock.
+SMEM_BYTES_PER_CLOCK = 128
 
 
 def check(cond: bool, msg: str) -> None:
@@ -128,20 +135,23 @@ def gpu_line() -> str:
     return out.stdout.strip()
 
 
-def ptxas_report(compiler_output: str, kernels: tuple[str, ...]) -> str:
-    """Registers and spill bytes that ``ptxas -v`` reported for each
-    instantiation of ``kernels`` with uint8 codes, e.g. ``adc_scan_kernel<16>
-    39 regs 0/0 spill``. Template arguments: the queries per block, then
-    ``packed``/``unpacked`` for K3's sums."""
-    out, name, spill = [], None, "?"
+def ptxas_report(compiler_output: str, kernels: tuple[str, ...]
+                 ) -> list[tuple[str, int, int]]:
+    """Registers and spill bytes (stores + loads) that ``ptxas -v``
+    reported for each instantiation of ``kernels`` with uint8 codes or no
+    code type (K10), e.g. ``("adc_scan_kernel<16>", 39, 0)``. Template
+    arguments: the queries per block (K10: its bf16 parts), then
+    ``packed``/``unpacked`` for K3's and K5's sums."""
+    out, name, spill = [], None, -1
     entry = re.compile(r"Compiling entry function '_Z\d+(\w+?_kernel)I(\w+?)Ev")
     for line in compiler_output.splitlines():
         m = entry.search(line)
         if m:
-            name, spill = None, "?"
+            name, spill = None, -1
             args = m.group(2)
-            if m.group(1) in kernels and args.endswith("h"):
-                args = re.sub(r"Li(\d+)E", r"\1,", args[:-1])
+            if m.group(1) in kernels and (args.endswith("h") or re.fullmatch(
+                    r"(Li\d+E)+", args)):
+                args = re.sub(r"Li(\d+)E", r"\1,", args.rstrip("h"))
                 args = args.replace("Lb1E", "packed,").replace("Lb0E",
                                                                "unpacked,")
                 name = f"{m.group(1)}<{args.rstrip(',')}>"
@@ -151,12 +161,12 @@ def ptxas_report(compiler_output: str, kernels: tuple[str, ...]) -> str:
         sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                        line)
         if sp:
-            spill = f"{sp.group(1)}/{sp.group(2)} spill"
+            spill = int(sp.group(1)) + int(sp.group(2))
         rg = re.search(r"Used (\d+) registers", line)
         if rg:
-            out.append(f"{name} {rg.group(1)} regs {spill}")
+            out.append((name, int(rg.group(1)), spill))
             name = None
-    return ", ".join(out)
+    return out
 
 
 def recall_at(ids, gt, k: int) -> float:
@@ -188,13 +198,30 @@ def p50(xs):
                                                     + s[len(s) // 2])
 
 
-def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
-    """The least time in ms the card could take: the larger of the bytes
-    over HBM bandwidth and the operations over the peak rate of ``kind``,
-    and which of the two it is."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[kind]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+def smem_bytes_per_s(torch) -> float:
+    """The card's shared-memory rate: SMEM_BYTES_PER_CLOCK on each SM at
+    its max SM clock (``nvidia-smi --query-gpu=clocks.max.sm``)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60)
+    mhz = float(out.stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return SMEM_BYTES_PER_CLOCK * sms * mhz * 1e6
+
+
+def bound(nbytes: float, ops: float, kind: str, shared: float = 0.0,
+          shared_rate: float = 1.0) -> tuple[float, str, str]:
+    """The least time in ms the card could take: the largest of the bytes
+    over HBM bandwidth, the ``shared`` bytes (the walk kernels' LUT
+    lookups) over ``shared_rate``, and the operations over the peak rate
+    of ``kind``. → (ms, "bytes" or "operations", the term that set it:
+    "hbm", "shared" or "operations")."""
+    times = {"hbm": nbytes / HBM_BYTES_PER_S, "shared": shared / shared_rate,
+             "operations": ops / PEAK_OPS[kind]}
+    term = max(times, key=times.get)
+    return (times[term] * 1e3,
+            "operations" if term == "operations" else "bytes", term)
 
 
 def budget_err(torch, got, want, name: str, what: str) -> float:
@@ -353,7 +380,7 @@ def budget_boundary_checks(torch, kernels) -> None:
 def int8_boundary_checks(torch, kernels) -> None:
     """Phase 3a: K3/K5/K8 against their plain versions. K3 and K5 at
     N ∈ {2047, 2048, 2049, 8191, 8193}, B ∈ {1, 33, 65, 257} and the
-    codebooks of I8_BOOKS (K3 stages 64 queries a block at 12×256, K5 32);
+    codebooks of I8_BOOKS (K3 and K5 stage 64 queries a block at 12×256);
     K8 at block_t ∈ {128, 256, 1024}, B ∈ {1, 257}, the budget codebooks
     and 12×16, with the inf tile and pad rows as in the K6/K7 cases."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -609,9 +636,18 @@ def main() -> int:
     log(f"[2] kernels built in {built.seconds:.1f} s "
         f"({time.perf_counter() - t0:.1f} s with load): {built.path.name}")
     if built.compiler_output:
-        log("[2] ptxas, uint8 codes: " + ptxas_report(
-            built.compiler_output, ("adc_scan_kernel", "adc_scan_int8_kernel",
-                                    "adc_scan_binned_kernel")))
+        regs = ptxas_report(built.compiler_output, (
+            "adc_scan_kernel", "adc_scan_int8_kernel",
+            "adc_scan_binned_kernel", "adc_scan_binned_int8_kernel",
+            "budget_exact_grouped_kernel"))
+        log("[2] ptxas, uint8 codes: " + ", ".join(
+            f"{n} {r} regs {sp} spill bytes" for n, r, sp in regs))
+        check(any(n.startswith("adc_scan_binned_int8_kernel") for n, _, _
+                  in regs) and any(n == "budget_exact_grouped_kernel<3>"
+                                   for n, _, _ in regs),
+              "ptxas reported no K5 or K10 instantiation")
+        check(all(sp == 0 for _, _, sp in regs),
+              "a walk kernel or K10 spills registers")
 
     # ---------------------------------------------------------- 3a: edges
     boundary_checks(torch, kernels)
@@ -991,7 +1027,9 @@ def main() -> int:
     # Each kernel's bound at these shapes: its inputs read once and its
     # outputs written once; the budget kernels read only the distinct tiles
     # they probe. Operations count what the data needs: d = 300 columns
-    # and the N real rows for the exact products, m adds per ADC sum.
+    # and the N real rows for the exact products, m adds per ADC sum. The
+    # walk kernels K2-K5 also make B*N*m lookups in shared memory, 4 bytes
+    # each for float LUTs and 1 for int8 ones.
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
@@ -1000,6 +1038,7 @@ def main() -> int:
                 + int(torch.unique(tiles).numel()) * block_t * row_bytes)
 
     adc_ops = EVAL_Q * N * luts.shape[1]
+    shared_rate = smem_bytes_per_s(torch)
     dense_out = EVAL_Q * N * 4
     binned_out = EVAL_Q * -(-N // 2048) * 128 * 8
     fx_out = FUSED_B * fused._tiled.shape[0] // 8192 * 128 * 8
@@ -1008,16 +1047,17 @@ def main() -> int:
     vec_row = jt100v.vecs.shape[1] * 2 + 4
     join_ops = tiles_j.numel() * jt100.block_t * luts_join.shape[1]
     work = {
-        "adc_scan": (nbytes(luts, codes_t) + dense_out, adc_ops, "fp32"),
+        "adc_scan": (nbytes(luts, codes_t) + dense_out, adc_ops, "fp32",
+                     4 * adc_ops),
         "adc_scan_binned": (nbytes(luts, codes_t) + binned_out, adc_ops,
-                            "fp32"),
+                            "fp32", 4 * adc_ops),
         "fused_exact_scan": (
             nbytes(qb, fused._tiled, fused._tiled_norms) + fx_out,
             2 * FUSED_B * N * D, "bf16"),
         "adc_scan_int8": (nbytes(ql, sc, codes_t) + dense_out, adc_ops,
-                          "fp32"),
+                          "fp32", adc_ops),
         "adc_scan_binned_int8": (nbytes(ql, sc, codes_t) + binned_out,
-                                 adc_ops, "fp32"),
+                                 adc_ops, "fp32", adc_ops),
         "budget_adc": (
             probe_bytes(tiles_ivf, tiled.block_t, ivf_row, luts_ivf),
             tiles_ivf.numel() * tiled.block_t * luts_ivf.shape[1], "fp32"),
@@ -1030,11 +1070,15 @@ def main() -> int:
         "budget_exact": (
             probe_bytes(tiles_1, jt100v.block_t, vec_row, q256[7:8]),
             2 * tiles_1.numel() * jt100v.block_t * D, "fp32"),
+        # three bf16 products per query value on the tensor cores
         "budget_exact_grouped": (
             probe_bytes(tiles_jv, jt100v.block_t, vec_row, qj),
-            2 * tiles_jv.numel() * jt100v.block_t * D, "fp32"),
+            3 * 2 * tiles_jv.numel() * jt100v.block_t * D, "bf16"),
     }
-    bounds = {name: bound(*w) for name, w in work.items()}
+    bounds = {name: bound(*w, shared_rate=shared_rate)
+              for name, w in work.items()}
+    log(f"[5] shared-memory rate {shared_rate / 1e12:.2f} TB/s (128 B per "
+        f"clock per SM at the max SM clock) on {card}")
     for name, (kfn, pfn) in pairs.items():
         pl1, kt, kt2, pl2 = (cuda_ms(torch, pfn, reps=3),
                              cuda_ms(torch, kfn, reps=3),
@@ -1044,7 +1088,7 @@ def main() -> int:
         log(f"[5] kernel {name}: {kernel_ms[name]:.3f} ms, plain "
             f"{plain_ms[name]:.3f} ms per call (p50 of 6, plain-kernel-"
             f"kernel-plain), bound {bounds[name][0]:.4f} ms "
-            f"({bounds[name][1]}) on {card}")
+            f"({bounds[name][1]}, {bounds[name][2]}) on {card}")
     # K1's yardstick, never called by the port: one bf16 matmul of the
     # same (B, D) x (D, N_pad) product, without the bin reduction
     library_ms = {name: None for name in kernels.KERNELS}
@@ -1053,9 +1097,26 @@ def main() -> int:
     log(f"[5] library for fused_exact_scan: bf16 torch.matmul "
         f"{tuple(qb.shape)} x {tuple(fused._tiled.t().shape)} "
         f"{library_ms['fused_exact_scan']:.3f} ms on {card}")
-    # The queries per block of K4, K2 and K3, swept at the main shape
+    # K10's yardstick, never called by the port: one bf16 torch.bmm of the
+    # groups' (rows, D) x (D, block_t) products over the join's real groups,
+    # queries and tiles gathered beforehand (not timed); no row norms
+    nt_v = jt100v.vecs.shape[0] // jt100v.block_t
+    qidx_j, tog_j, _ = kernels._grouped_layout(tiles_jv.to(torch.int32),
+                                               nt_v, 32)
+    real = qidx_j[:, 0] < qj.shape[0]
+    q_g = kernels.pad_queries(qj, jt100v.vecs.shape[1])[
+        qidx_j[real].clamp(max=qj.shape[0] - 1).long()]
+    t_g = jt100v.vecs.view(nt_v, jt100v.block_t, -1)[
+        tog_j[real].clamp(0, nt_v - 1).long()].transpose(1, 2)
+    library_ms["budget_exact_grouped"] = p50(cuda_ms(
+        torch, lambda: torch.bmm(q_g, t_g), reps=3))
+    log(f"[5] library for budget_exact_grouped: bf16 torch.bmm "
+        f"{tuple(q_g.shape)} x {tuple(t_g.shape)} "
+        f"{library_ms['budget_exact_grouped']:.3f} ms on {card}")
+    del q_g, t_g
+    # The queries per block of K4, K2, K3 and K5, swept at the main shape
     # through the C entry points that take them (the wrappers let the
-    # kernels choose: 16 for K4 and K2, 64 for K3)
+    # kernels choose: 16 for K4 and K2, 64 for K3 and K5)
     lib = _build.load()
     sweep_out = kernels.adc_scan_binned(luts, codes_t)
     dense_out = torch.empty(EVAL_Q, N, device=dev)
@@ -1079,15 +1140,38 @@ def main() -> int:
             codes_t.element_size(), dense_out.data_ptr(), EVAL_Q, *mk, N,
             qblk, stream)
 
+    # K10's bf16 parts per query value at the join's shape: 3 is the
+    # kernel's (exact); 2 and 1 lose precision and show what a part costs
+    q_jv = kernels._pad_f32(qj, jt100v.vecs.shape[1])
+    k10_out = torch.empty(qidx_j.numel(), jt100v.block_t, device=dev)
+
+    def k10_at(parts):
+        return lib.pw2v_budget_exact_grouped_parts(
+            q_jv.data_ptr(), jt100v.vecs.data_ptr(),
+            jt100v.rownorm.data_ptr(), qidx_j.data_ptr(), tog_j.data_ptr(),
+            k10_out.data_ptr(), qj.shape[0], q_jv.shape[1],
+            jt100v.vecs.shape[0], tog_j.shape[0], 32, jt100v.block_t, parts,
+            stream)
+
+    def k5_at(qblk):
+        return lib.pw2v_adc_scan_binned_int8_qb(
+            ql.data_ptr(), sc.data_ptr(), codes_t.data_ptr(),
+            codes_t.element_size(), sweep_out[0].data_ptr(),
+            sweep_out[1].data_ptr(), EVAL_Q, *mk, N, 2048, 128, qblk, stream)
+
     sweep = {}
     for name, at, qbs in (("K4", k4_at, (16, 8)), ("K2", k2_at, (16, 8)),
-                          ("K3", k3_at, (64, 32))):
+                          ("K3", k3_at, (64, 32)), ("K5", k5_at, (64, 32)),
+                          ("K10", k10_at, (3, 2, 1))):
         for qblk in qbs:
             def run(at=at, qblk=qblk):
                 err = at(qblk)
-                check(err == 0, f"{name} qb={qblk}: CUDA error {err}")
-            sweep[f"{name} qb={qblk}"] = p50(cuda_ms(torch, run, reps=3))
-    log(f"[5] sweep at B={EVAL_Q}, 12x256: " + ", ".join(
+                check(err == 0, f"{name} {qblk}: CUDA error {err}")
+            key = f"{name} {'parts' if name == 'K10' else 'qb'}={qblk}"
+            sweep[key] = p50(cuda_ms(torch, run, reps=5 if name == "K10"
+                                     else 3))
+    log(f"[5] sweep at B={EVAL_Q}, 12x256 (K10 at the join's method-1 "
+        f"shape): " + ", ".join(
         f"{k} {t:.3f} ms" for k, t in sweep.items()) + f" on {card}")
     # K6 at the 3M join's shape (10 launches per call there): its bound
     all_row = jt_all.codes_t.shape[0] * jt_all.codes_t.element_size() + 4
@@ -1097,7 +1181,7 @@ def main() -> int:
     log(f"[5] bound budget_adc at the 3M join (B=512 P={tiles_3m.shape[1]} "
         f"block_t={jt_all.block_t} 30x32): {k6_3m[0]:.4f} ms ({k6_3m[1]}) "
         f"on {card}")
-    del luts, ql, sc, sweep_out, dense_out
+    del luts, ql, sc, sweep_out, dense_out, k10_out
 
     def joined(method, targets, alpha, stats, lut_dtype="bf16"):
         def go():
@@ -1201,7 +1285,8 @@ def main() -> int:
          "replaces": k.replaces, "launches": launches[k.name],
          "max_abs_err": errs[k.name], "ms": kernel_ms[k.name],
          "plain_ms": plain_ms[k.name], "bound_ms": bounds[k.name][0],
-         "bound_by": bounds[k.name][1], "library_ms": library_ms[k.name]}
+         "bound_by": bounds[k.name][1], "bound_term": bounds[k.name][2],
+         "library_ms": library_ms[k.name]}
         for k in kernels.KERNELS.values()]}
     log(f"[8] the whole run took {time.perf_counter() - started:.1f} s")
     log(json.dumps({"recall": rec, "paths_ms_per_query": times,

@@ -4,9 +4,10 @@
 //   the LUTs of up to ADC_MAX_QB queries, one thread per code row, one
 //   accumulator per staged query (adc_stage_luts, adc_row).
 // - The query-minor walk (K2 adc_scan.cu, K3 adc_scan_int8.cu, K4
-//   adc_scan_binned.cu): adc_walk with a lookup policy (AdcF32, AdcU8) and
-//   an epilogue (AdcDense here, K4's bin min in its own file).
-// - int8 LUTs query-minor, one thread per row (K5, K8): adc_i8_*.
+//   adc_scan_binned.cu, K5 adc_scan_binned_int8.cu): adc_walk with a lookup
+//   policy (AdcF32, AdcU8) and an epilogue (AdcDense here, K4's and K5's
+//   bin mins in their own files).
+// - int8 LUTs query-minor, one thread per row (K8): adc_i8_*.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,10 +19,6 @@
 // one SM (227 KB); one query's LUT alone may use up to ADC_SMEM_MAX.
 #define ADC_SMEM_TARGET (96 * 1024)
 #define ADC_SMEM_MAX (227 * 1024)
-// Blocks launched in all: about eight per SM of a 132-SM card. Each block
-// walks its share of rows in a grid-stride loop, so the LUT staging cost is
-// paid once per block rather than once per 256 rows.
-#define ADC_TARGET_BLOCKS 1056
 
 // Queries staged per block for an (m, k) codebook: as many as fit in
 // ADC_SMEM_TARGET, at least one and at most ADC_MAX_QB. 0 when one query's
@@ -33,14 +30,6 @@ static inline int adc_query_block(int m, int k) {
   if (qb < 1) qb = 1;
   if (qb > ADC_MAX_QB) qb = ADC_MAX_QB;
   return (int)qb;
-}
-
-static inline unsigned adc_grid_x(long long units, unsigned grid_y) {
-  long long gx = (units + ADC_THREADS - 1) / ADC_THREADS;
-  const long long cap = (ADC_TARGET_BLOCKS + grid_y - 1) / grid_y;
-  if (gx > cap) gx = cap;
-  if (gx < 1) gx = 1;
-  return (unsigned)gx;
 }
 
 // Copy the (nq, m, k) LUT block of queries [b0, b0 + nq) into shared memory.
@@ -316,7 +305,7 @@ __device__ __forceinline__ void adc_f32_stage(float* lut_s,
   __syncthreads();
 }
 
-// ---------------------------------------------------- int8 lookups (K3)
+// ------------------------------------------------ int8 lookups (K3, K5)
 //
 // The int8 LUT is staged biased to uint8, l + 127 in [0, 254], so the sum of
 // m lookups is a nonnegative integer below m*255. Packed (m <= ADC_U8_MAX_M):
@@ -461,9 +450,9 @@ struct AdcDense {
 
 // ---------------------------------------------------------------- int8 LUTs
 //
-// K5 and K8 (adc_scan_binned_int8.cu, budget_adc_grouped_int8.cu) take
-// per-query int8 LUTs with one float32 scale per query, one thread per code
-// row. A query's int8 LUT is a quarter of its float32 one (3 KB at 12x256),
+// K8 (budget_adc_grouped_int8.cu) takes per-query int8 LUTs with one
+// float32 scale per query, one thread per code row. A query's int8 LUT is
+// a quarter of its float32 one (3 KB at 12x256),
 // so a block stages up to ADC_I8_MAX_QB = 32 queries. The staged LUTs are
 // query-minor: entry (j, c) of the QB staged
 // queries is QB consecutive bytes, so a thread fetches the lookups of all its

@@ -47,10 +47,14 @@ SIGNATURES = {
     "pw2v_budget_exact": (_P, _P, _P, _P, _P, _I, _I, _I64, _I, _I, _P),
     "pw2v_budget_exact_grouped": (_P, _P, _P, _P, _P, _P, _I, _I, _I64, _I,
                                   _I, _I, _P),
+    "pw2v_budget_exact_grouped_parts": (_P, _P, _P, _P, _P, _P, _I, _I,
+                                        _I64, _I, _I, _I, _I, _P),
     "pw2v_adc_scan_int8": (_P, _P, _P, _I, _P, _I, _I, _I, _I64, _P),
     "pw2v_adc_scan_int8_qb": (_P, _P, _P, _I, _P, _I, _I, _I, _I64, _I, _P),
     "pw2v_adc_scan_binned_int8": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I64,
                                   _I, _I, _P),
+    "pw2v_adc_scan_binned_int8_qb": (_P, _P, _P, _I, _P, _P, _I, _I, _I,
+                                     _I64, _I, _I, _I, _P),
     "pw2v_budget_adc_grouped_int8": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
                                      _I, _I64, _I, _I, _I, _P),
 }

@@ -22,8 +22,8 @@ kernels, written in CUDA C++ for ``sm_90a`` (sources in ``csrc/``, built by
   (``csrc/budget_adc_grouped_int8.cu``);
 - K9 :func:`budget_exact` — budgeted tile-gather exact scores
   (``csrc/budget_exact.cu``), the join's ``method=1``;
-- K10 :func:`budget_exact_grouped` — its tile-grouped twin
-  (``csrc/budget_exact_grouped.cu``).
+- K10 :func:`budget_exact_grouped` — its tile-grouped twin, on the
+  tensor cores (``csrc/budget_exact_grouped.cu``).
 
 :func:`budget_adc_auto` / :func:`budget_exact_auto` choose between the
 per-query and grouped kernels with the JAX package's rule
@@ -351,7 +351,7 @@ def adc_scan_binned(luts: torch.Tensor, codes_t: torch.Tensor, *,
     the (B, N) distance matrix never reaches device memory. Rows at or past
     N count as +inf; a bin without a valid row holds +inf and its first
     row's id (K4), or id −1 for ``lut_dtype="int8"`` (K5). On the card K4
-    takes ``bins=128``."""
+    and K5 take ``bins=128``."""
     _require(bins >= 1 and block_n % bins == 0,
              f"block_n={block_n} must be a multiple of bins={bins}")
     _check_lut_dtype(lut_dtype)
@@ -383,7 +383,8 @@ def adc_scan_binned_int8(luts: torch.Tensor, scale: torch.Tensor,
     global ids int32): per strided bin the min of the exact packed key
     ``int_sum·2^shift + s`` (a tie takes the lowest row id), scaled by the
     query's ``scale``. Rows at or past N are masked; a bin without one is
-    +inf with id −1. Equal to the plain version bit for bit."""
+    +inf with id −1. Equal to the plain version bit for bit. On the card
+    K5 takes ``bins=128``."""
     _require(bins >= 1 and block_n % bins == 0,
              f"block_n={block_n} must be a multiple of bins={bins}")
     _require((luts.shape[1] * 127 + 1) << _key_shift(block_n, bins)
@@ -391,6 +392,8 @@ def adc_scan_binned_int8(luts: torch.Tensor, scale: torch.Tensor,
     if not _on_cuda(luts, scale, codes_t):
         return adc_scan_binned_plain(luts, codes_t, block_n=block_n,
                                      bins=bins, scale=scale)
+    _require(bins == 128, f"the card's binned scan takes bins=128, got "
+             f"{bins}")
     _check_adc_inputs(luts, codes_t, scale)
     B, m, k = luts.shape
     n = codes_t.shape[1]
@@ -825,11 +828,13 @@ def _check_exact_inputs(queries: torch.Tensor, vecs: torch.Tensor) -> None:
 
 
 def _pad_f32(queries: torch.Tensor, dim: int) -> torch.Tensor:
-    """float32 queries zero-padded to the table's row width."""
+    """float32 queries zero-padded to the table's row width, contiguous
+    and 16-byte aligned (K10 reads them in 16-byte pieces)."""
     q = queries.float()
     if q.shape[1] < dim:
         q = F.pad(q, (0, dim - q.shape[1]))
-    return q.contiguous()
+    q = q.contiguous()
+    return q.clone() if q.data_ptr() % 16 else q
 
 
 def budget_exact_plain(queries: torch.Tensor, vecs: torch.Tensor,
@@ -874,8 +879,11 @@ def budget_exact_grouped(queries: torch.Tensor, vecs: torch.Tensor,
                          rownorm: torch.Tensor, tiles: torch.Tensor, *,
                          block_t: int, rows: int = 8) -> torch.Tensor:
     """Tile-grouped budgeted exact scores (K10), :func:`budget_exact`'s
-    contract: ``rows`` ≤ 32 queries per block share one vector tile. CPU
-    tensors take :func:`budget_exact_plain`."""
+    contract: ``rows`` ≤ 32 queries per block share one vector tile, their
+    products on the tensor cores with each float32 query value split into
+    three bf16 parts (``hi = bf16(q)``, ``mid = bf16(q − hi)``, ``lo =
+    bf16(q − hi − mid)``, which hold it exactly), within 1e-4 of the
+    float32 plain version. CPU tensors take :func:`budget_exact_plain`."""
     if not _on_cuda(queries, vecs, rownorm, tiles):
         return budget_exact_plain(queries, vecs, rownorm, tiles,
                                   block_t=block_t)

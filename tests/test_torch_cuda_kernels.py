@@ -20,12 +20,14 @@ Tolerances:
   term: they agree bit for bit in practice);
 - K9 / K10 budget exact: atol 1e-4 on the finite shifted scores and the
   same +inf entries (float32 queries, bf16 rows widened exactly, float32
-  sums over 304 products in another order than the plain matmul's);
-- K3 / K5 / K8 over int8 LUTs: exact integer sums (K3's packed 16-bit
-  lanes too, at m up to 258, and its unpacked sums past it) and the plain
-  version's rounding of the rescale (and of K8's row-term add), so K3 and
-  K5 are held to equality (mins, ids and +inf / −1 slots) and K8 to atol
-  1e-5 on the finite entries with the same +inf entries.
+  sums over 304 products in another order than the plain matmul's; K10
+  splits each query value into three bf16 parts, which hold it exactly,
+  for the tensor cores, so queries of norm 10 hold 1e-4 too);
+- K3 / K5 / K8 over int8 LUTs: exact integer sums (K3's and K5's packed
+  16-bit lanes too, at m up to 258, and their unpacked sums past it) and
+  the plain version's rounding of the rescale (and of K8's row-term add),
+  so K3 and K5 are held to equality (mins, ids and +inf / −1 slots) and
+  K8 to atol 1e-5 on the finite entries with the same +inf entries.
 """
 
 import numpy as np
@@ -290,7 +292,10 @@ def test_budget_adc_grouped_matches_plain(block_t, B, m, k, dtype):
         luts, codes_t, rowterm, tiles, block_t=block_t), 1e-5)
 
 
-def _exact_case(seed, B, block_t, d=300, nt=6, P=5):
+def _exact_case(seed, B, block_t, d=300, nt=6, P=5, q_norm=1.0):
+    """Unit rows of width d in a (NA, D) bf16 table, D = d rounded up to a
+    multiple of 8, pad rows in tile 1 and the inf tile; queries are rows of
+    tile 0 scaled to norm ``q_norm``."""
     rng = np.random.default_rng(seed)
     na = (nt + 1) * block_t
     v = rng.normal(size=(na, d)).astype(np.float32)
@@ -298,7 +303,8 @@ def _exact_case(seed, B, block_t, d=300, nt=6, P=5):
     v[block_t + block_t // 2:2 * block_t] = 0.0       # pad rows
     v[nt * block_t:] = 0.0                             # the inf tile
     vt = torch.as_tensor(v, device="cuda")
-    vecs = torch.zeros(na, 304, dtype=torch.bfloat16, device="cuda")
+    vecs = torch.zeros(na, -(-d // 8) * 8, dtype=torch.bfloat16,
+                       device="cuda")
     vecs[:, :d] = vt.to(torch.bfloat16)
     rownorm = torch.sum(vt * vt, dim=1)
     rownorm[block_t + block_t // 2:2 * block_t] = float("inf")
@@ -306,7 +312,7 @@ def _exact_case(seed, B, block_t, d=300, nt=6, P=5):
     q = vt[torch.as_tensor(rng.integers(0, block_t, B), device="cuda")]
     tiles = torch.as_tensor(rng.integers(0, nt + 1, (B, P)), device="cuda",
                             dtype=torch.int32)
-    return q.contiguous(), vecs, rownorm, tiles
+    return (q * q_norm).contiguous(), vecs, rownorm, tiles
 
 
 @pytest.mark.parametrize("block_t", BLOCKS)
@@ -326,6 +332,27 @@ def test_budget_exact_matches_plain(block_t, B):
 @pytest.mark.parametrize("rows", (8, 32))
 def test_budget_exact_grouped_matches_plain(block_t, B, rows):
     q, vecs, rownorm, tiles = _exact_case(2 * block_t + B, B, block_t)
+    before = kernels.KERNELS["budget_exact_grouped"].launches
+    got = kernels.budget_exact_grouped(q, vecs, rownorm, tiles,
+                                       block_t=block_t, rows=rows)
+    assert kernels.KERNELS["budget_exact_grouped"].launches == before + 1
+    _assert_budget_close(got, kernels.budget_exact_plain(
+        q, vecs, rownorm, tiles, block_t=block_t), 1e-4)
+
+
+@pytest.mark.parametrize("rows", (1, 7, 8, 32))
+@pytest.mark.parametrize("d", (8, 24, 300))
+@pytest.mark.parametrize("q_norm", (1.0, 10.0))
+@pytest.mark.parametrize("block_t", (100, 256))
+def test_budget_exact_grouped_tensor_core_edges(rows, d, q_norm, block_t):
+    """K10's tensor-core product at one to four n-tiles of 8 slots (rows 1,
+    7, 8, 32), row widths D = 8, 24 and 304 (D % 32 = 8, 24, 16: the last
+    chunk zero-filled), a tile height that leaves the last 32-row task
+    ragged (100), and queries of norm 10, where bf16 queries alone would
+    miss 1e-4 by far and a two-part split by up to ~1.5x: the three-part
+    split holds it."""
+    q, vecs, rownorm, tiles = _exact_case(rows + d + block_t, 64, block_t,
+                                          d=d, q_norm=q_norm)
     before = kernels.KERNELS["budget_exact_grouped"].launches
     got = kernels.budget_exact_grouped(q, vecs, rownorm, tiles,
                                        block_t=block_t, rows=rows)
@@ -522,8 +549,9 @@ def test_adc_scan_int8_every_query_block_matches_plain(qb):
     assert torch.equal(out, kernels.adc_scan_plain(ql, codes_t, scale=sc))
 
 
+# K5 stages 64 queries a block at 12x256, as K3
 @pytest.mark.parametrize("n", N_EDGES)
-@pytest.mark.parametrize("B", (1, 33, 257))
+@pytest.mark.parametrize("B", (1, 33, 63, 64, 65, 257))
 @pytest.mark.parametrize("m,k,dtype", I8_BOOKS)
 def test_adc_scan_binned_int8_matches_plain(n, B, m, k, dtype):
     ql, sc, codes_t = _i8_inputs(4 * n + B + m, B, m, k, n, dtype)
@@ -537,6 +565,102 @@ def test_adc_scan_binned_int8_matches_plain(n, B, m, k, dtype):
     kernels.verify_binned(mins, ids, ref_mins,
                           lambda i: torch.gather(dense, 1, i), block_n=2048,
                           bins=128, valid_n=n, atol=0.0)
+
+
+def _binned_int8_equal(ql, sc, codes_t, mins, ids):
+    """K5's output equals the plain version's (mins, ids, +inf / −1 slots)
+    and meets the binned contract against the dense int8 scores."""
+    n = codes_t.shape[1]
+    ref_mins, ref_ids = kernels.adc_scan_binned_plain(ql, codes_t, scale=sc)
+    assert torch.equal(mins, ref_mins) and torch.equal(ids, ref_ids)
+    dense = kernels.adc_scan_plain(ql, codes_t, scale=sc)
+    kernels.verify_binned(mins, ids, ref_mins,
+                          lambda i: torch.gather(dense, 1, i), block_n=2048,
+                          bins=128, valid_n=n, atol=0.0)
+
+
+@pytest.mark.parametrize("m", (12, 258, 259, 300))
+def test_adc_scan_binned_int8_packed_lanes_stay_exact(m):
+    """K5 keeps K3's lanes: two biased bytes per 32-bit word while m ≤ 258,
+    one int32 per query past that, and its bin min over them. Query 0's LUT
+    is all +127 and query 1's all −127 (the lanes' two extremes)."""
+    B, k, n = 70, 16, 2053
+    g = torch.Generator(device="cuda").manual_seed(m + 1)
+    luts = torch.rand(B, m, k, generator=g, device="cuda") * 8.0 - 4.0
+    luts[0], luts[1] = 4.0, -4.0
+    ql, sc = kernels.quantize_luts_int8(luts)
+    codes_t = torch.randint(0, k, (m, n), generator=g,
+                            device="cuda").to(torch.uint8)
+    mins, ids = kernels.adc_scan_binned_int8(ql, sc, codes_t)
+    torch.cuda.synchronize()
+    _binned_int8_equal(ql, sc, codes_t, mins, ids)
+
+
+@pytest.mark.parametrize("m,k,dtype", ((12, 256, torch.uint8),
+                                       (12, 1024, torch.int16)))
+def test_adc_scan_binned_int8_takes_unaligned_codes(m, k, dtype):
+    """K5 copies the codes without cp.async when a subspace's run is not
+    16-byte aligned (the table starts one element into its buffer)."""
+    n, B = 4096 + 5, 33
+    codes_t = _misaligned_codes(n + m + 1, m, k, n, dtype)
+    luts = torch.rand(B, m, k, generator=torch.Generator(
+        device="cuda").manual_seed(m + 1), device="cuda") * 4.0
+    ql, sc = kernels.quantize_luts_int8(luts)
+    mins, ids = kernels.adc_scan_binned_int8(ql, sc, codes_t)
+    torch.cuda.synchronize()
+    _binned_int8_equal(ql, sc, codes_t, mins, ids)
+
+
+def test_adc_scan_binned_int8_takes_the_lowest_id_on_ties():
+    """Code 0 is the smallest entry of every subspace for every query and
+    the only rows with all-zero codes are 3 + 5·128, 3 + 9·128 and
+    3 + 12·128, so bin 3 of tile 0 holds a three-way tie at its minimum:
+    its id is the lowest, 643. N = 2053 leaves bins 5..127 of tile 1
+    without a row: +inf with id −1."""
+    B, m, k, n = 70, 12, 256, 2053
+    g = torch.Generator(device="cuda").manual_seed(3)
+    luts = torch.rand(B, m, k, generator=g, device="cuda") * 3.0 + 1.0
+    luts[:, :, 0] = 0.0
+    ql, sc = kernels.quantize_luts_int8(luts)
+    codes_t = torch.randint(1, k, (m, n), generator=g,
+                            device="cuda").to(torch.uint8)
+    codes_t[:, [3 + 5 * 128, 3 + 9 * 128, 3 + 12 * 128]] = 0
+    mins, ids = kernels.adc_scan_binned_int8(ql, sc, codes_t)
+    torch.cuda.synchronize()
+    assert bool((ids[:, 3] == 3 + 5 * 128).all())
+    assert bool((mins[:, 3] == 0.0).all())
+    assert bool((ids[:, 128 + 5:] == -1).all())
+    assert bool(torch.isinf(mins[:, 128 + 5:]).all())
+    _binned_int8_equal(ql, sc, codes_t, mins, ids)
+
+
+@pytest.mark.parametrize("qb", (64, 32, 16, 8, 4))
+def test_adc_scan_binned_int8_every_query_block_matches_plain(qb):
+    """K5 at each queries-per-block through the sweep entry point (the
+    wrapper chooses 64 at 12x256)."""
+    from postgres_word2vec_tpu_torch.ops import _build
+
+    B, m, k, n = 133, 12, 256, 3001
+    ql, sc, codes_t = _i8_inputs(qb + 1, B, m, k, n, torch.uint8)
+    width = -(-n // 2048) * 128
+    mins = torch.full((B, width), float("nan"), device="cuda")
+    ids = torch.full((B, width), -7, dtype=torch.int32, device="cuda")
+    err = _build.load().pw2v_adc_scan_binned_int8_qb(
+        ql.data_ptr(), sc.data_ptr(), codes_t.data_ptr(), 1, mins.data_ptr(),
+        ids.data_ptr(), B, m, k, n, 2048, 128, qb,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    _binned_int8_equal(ql, sc, codes_t, mins, ids)
+
+
+def test_adc_scan_binned_int8_takes_only_128_bins_on_the_card():
+    ql, sc, codes_t = _i8_inputs(5, 3, 12, 256, 4096, torch.uint8)
+    with pytest.raises(ValueError, match="bins=128"):
+        kernels.adc_scan_binned_int8(ql, sc, codes_t, block_n=2048, bins=64)
+    with pytest.raises(ValueError, match="bins=128"):
+        kernels.adc_scan_binned(ql.float(), codes_t, block_n=2048, bins=256,
+                                lut_dtype="int8")
 
 
 @pytest.mark.parametrize("block_t", BLOCKS)

@@ -291,6 +291,50 @@ def test_plain_budget_exact_matches_pallas_interpret(rng):
         interpret=True), bound)
 
 
+def test_split_bf16_queries_hold_budget_exact_plain(rng):
+    """K10's reason for its hi/lo split, on the CPU: at d = 300, scores from
+    the two bf16 parts of each float32 query, ``hi = bf16(q)`` and ``lo =
+    bf16(q − hi)``, against bf16 rows with float32 sums, stay within 1e-5
+    of :func:`kernels.budget_exact_plain`; ``hi`` alone (the TPU kernel's
+    bf16 queries) does not. The kernel takes a third part, ``bf16(q − hi −
+    lo)``, and the three hold every float32 value exactly, at any norm."""
+    d, D, block_t, nt, B, P = 300, 304, 128, 4, 16, 3
+    na = (nt + 1) * block_t
+    v = rng.normal(size=(na, d)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    v[nt * block_t:] = 0.0                              # the inf tile
+    table = torch.zeros(na, D, dtype=torch.bfloat16)
+    table[:, :d] = to_torch(v).to(torch.bfloat16)
+    rownorm = to_torch((v * v).sum(1))
+    rownorm[nt * block_t:] = float("inf")
+    q = rng.normal(size=(B, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    tiles = rng.integers(0, nt, size=(B, P)).astype(np.int64)
+    tiles[0, -1] = nt
+    want = kernels.budget_exact_plain(to_torch(q), table, rownorm,
+                                      to_torch(tiles), block_t=block_t)
+    qf = torch.nn.functional.pad(to_torch(q), (0, D - d))
+    hi = qf.to(torch.bfloat16)
+    lo = (qf - hi.float()).to(torch.bfloat16)
+    rows = table.float().reshape(nt + 1, block_t, D)[to_torch(tiles)]
+    norms = rownorm.reshape(nt + 1, block_t)[to_torch(tiles)]
+
+    def scores(*parts):
+        dot = sum(torch.einsum("bptd,bd->bpt", rows, p.float())
+                  for p in parts)
+        return (norms - 2.0 * dot).reshape(B, P * block_t)
+
+    _close_with_inf(scores(hi, lo), want, 1e-5)
+    fin = torch.isfinite(want)
+    assert float((scores(hi) - want)[fin].abs().max()) > 1e-5
+    q10 = qf * 10.0
+    parts = []
+    for _ in range(3):
+        parts.append(q10.to(torch.bfloat16))
+        q10 = q10 - parts[-1].float()
+    assert not q10.any()
+
+
 def test_budget_dispatch_rule_is_the_jax_rule(rng):
     assert kernels.GROUPED_ROWS_DEFAULT == pk.GROUPED_ROWS_DEFAULT
     for bp, n_tiles, rows, slot in ((8192, 1416, 32, 1920),
