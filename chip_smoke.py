@@ -27,13 +27,16 @@ a user calls, and holds every hand-written kernel to its plain version:
 5. times: p50 per query from CUDA events, kernel and plain version side
    by side, and each kernel alone against its plain version, with its
    bound at those shapes (the largest of HBM bytes, the walk kernels'
-   shared-memory lookup bytes, and peak operations) and, for K1 and K10,
-   one PyTorch call of the same product as a yardstick (a bf16
-   ``torch.matmul``; a bf16 ``torch.bmm`` over pre-gathered tiles);
-   a sweep at the main shape of the queries per block (K4 at 16 and 8, K2
-   at 16 and 8, K3 and K5 at 64 and 32) and of K10's bf16 parts per query
-   value at the join's shape (3, the kernel's; 2 and 1); K6's bound at the
-   3M join's shape;
+   and the ADC budget kernels' shared-memory lookup bytes, and peak
+   operations) and, for K1 and K10, one PyTorch call of the same product
+   as a yardstick (a bf16 ``torch.matmul``; a bf16 ``torch.bmm`` over
+   pre-gathered tiles); a sweep at the main shape of the queries per block
+   (K4 at 16 and 8, K2 at 16 and 8, K3 and K5 at 64 and 32), of K10's bf16
+   parts per query value at the join's shape (3, the kernel's; 2 and 1),
+   of K6's slots per block and ring depth at the 3M join's, the IVFADC
+   batch's and the 100k join's shapes, and of K8's staged width at the
+   join's shape; K6's time and bound at the 3M and the 100k join's shapes;
+   the join's group sizes;
 6. only with ``--profile OUT.json``: a ``torch.profiler`` window of 3
    calls per path, written to OUT.json — host wall and device time per
    call, the device's busy share, the top device kernels, and each
@@ -90,13 +93,13 @@ INT8_MAX_DROP = 0.02
 # K2/K4/K6/K7 sum subspaces in the plain version's order (K2 and K4 are held
 # to bit equality, K4's ids too); K9/K10 sum 304 float32 products in another
 # order;
-# K3/K5 sum exactly in int32 and round the one rescale as the plain version
-# does; K8 also rounds its row-term add on its own (__fmul_rn, then
+# K3/K5/K8 sum exactly in integers and round the one rescale as the plain
+# version does; K8 also rounds its row-term add on its own (__fmul_rn, then
 # __fadd_rn); K1 sums bf16 products on the tensor cores in another order.
 TOL = {"adc_scan": 0.0, "adc_scan_binned": 0.0, "fused_exact_scan": 1e-3,
        "budget_adc": 1e-5, "budget_adc_grouped": 1e-5, "budget_exact": 1e-4,
        "budget_exact_grouped": 1e-4, "adc_scan_int8": 0.0,
-       "adc_scan_binned_int8": 0.0, "budget_adc_grouped_int8": 1e-5}
+       "adc_scan_binned_int8": 0.0, "budget_adc_grouped_int8": 0.0}
 BUDGET_BOOKS = ((12, 256, "uint8"), (30, 32, "uint8"), (15, 1024, "int16"))
 # K1/K2/K4's boundary codebooks (slice 1's)
 SCAN_BOOKS = ((12, 256, "uint8"), (60, 16, "uint8"), (12, 1024, "int16"))
@@ -213,7 +216,7 @@ def smem_bytes_per_s(torch) -> float:
 def bound(nbytes: float, ops: float, kind: str, shared: float = 0.0,
           shared_rate: float = 1.0) -> tuple[float, str, str]:
     """The least time in ms the card could take: the largest of the bytes
-    over HBM bandwidth, the ``shared`` bytes (the walk kernels' LUT
+    over HBM bandwidth, the ``shared`` bytes (the ADC kernels' LUT
     lookups) over ``shared_rate``, and the operations over the peak rate
     of ``kind``. → (ms, "bytes" or "operations", the term that set it:
     "hbm", "shared" or "operations")."""
@@ -639,15 +642,17 @@ def main() -> int:
         regs = ptxas_report(built.compiler_output, (
             "adc_scan_kernel", "adc_scan_int8_kernel",
             "adc_scan_binned_kernel", "adc_scan_binned_int8_kernel",
-            "budget_exact_grouped_kernel"))
+            "budget_exact_grouped_kernel", "budget_adc_kernel",
+            "budget_adc_grouped_int8_kernel"))
         log("[2] ptxas, uint8 codes: " + ", ".join(
             f"{n} {r} regs {sp} spill bytes" for n, r, sp in regs))
-        check(any(n.startswith("adc_scan_binned_int8_kernel") for n, _, _
-                  in regs) and any(n == "budget_exact_grouped_kernel<3>"
-                                   for n, _, _ in regs),
-              "ptxas reported no K5 or K10 instantiation")
+        for want in ("adc_scan_binned_int8_kernel<",
+                     "budget_exact_grouped_kernel<3>", "budget_adc_kernel<",
+                     "budget_adc_grouped_int8_kernel<packed>"):
+            check(any(n.startswith(want) for n, _, _ in regs),
+                  f"ptxas reported no {want}")
         check(all(sp == 0 for _, _, sp in regs),
-              "a walk kernel or K10 spills registers")
+              "a walk kernel, K6, K8 or K10 spills registers")
 
     # ---------------------------------------------------------- 3a: edges
     boundary_checks(torch, kernels)
@@ -1029,7 +1034,9 @@ def main() -> int:
     # they probe. Operations count what the data needs: d = 300 columns
     # and the N real rows for the exact products, m adds per ADC sum. The
     # walk kernels K2-K5 also make B*N*m lookups in shared memory, 4 bytes
-    # each for float LUTs and 1 for int8 ones.
+    # each for float LUTs and 1 for int8 ones, and the ADC budget kernels
+    # K6-K8 one per (query, tile) pair, row and subspace, not counting the
+    # pairs on the inf tile (a plan's padding), which need no sum.
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
@@ -1045,7 +1052,13 @@ def main() -> int:
     ivf_row = tiled.codes_t.shape[0] * tiled.codes_t.element_size() + 4
     join_row = jt100.codes_t.shape[0] * jt100.codes_t.element_size() + 4
     vec_row = jt100v.vecs.shape[1] * 2 + 4
-    join_ops = tiles_j.numel() * jt100.block_t * luts_join.shape[1]
+
+    def adc_probe_ops(tiles, jt, m):
+        real = int((tiles != jt.codes_t.shape[1] // jt.block_t - 1).sum())
+        return real * jt.block_t * m
+
+    join_ops = adc_probe_ops(tiles_j, jt100, luts_join.shape[1])
+    ivf_ops = adc_probe_ops(tiles_ivf, tiled, luts_ivf.shape[1])
     work = {
         "adc_scan": (nbytes(luts, codes_t) + dense_out, adc_ops, "fp32",
                      4 * adc_ops),
@@ -1060,13 +1073,13 @@ def main() -> int:
                                  adc_ops, "fp32", adc_ops),
         "budget_adc": (
             probe_bytes(tiles_ivf, tiled.block_t, ivf_row, luts_ivf),
-            tiles_ivf.numel() * tiled.block_t * luts_ivf.shape[1], "fp32"),
+            ivf_ops, "fp32", 4 * ivf_ops),
         "budget_adc_grouped": (
             probe_bytes(tiles_j, jt100.block_t, join_row, luts_join),
-            join_ops, "fp32"),
+            join_ops, "fp32", 4 * join_ops),
         "budget_adc_grouped_int8": (
             probe_bytes(tiles_j, jt100.block_t, join_row, ql_join, sc_join),
-            join_ops, "fp32"),
+            join_ops, "fp32", join_ops),
         "budget_exact": (
             probe_bytes(tiles_1, jt100v.block_t, vec_row, q256[7:8]),
             2 * tiles_1.numel() * jt100v.block_t * D, "fp32"),
@@ -1173,14 +1186,92 @@ def main() -> int:
     log(f"[5] sweep at B={EVAL_Q}, 12x256 (K10 at the join's method-1 "
         f"shape): " + ", ".join(
         f"{k} {t:.3f} ms" for k, t in sweep.items()) + f" on {card}")
-    # K6 at the 3M join's shape (10 launches per call there): its bound
-    all_row = jt_all.codes_t.shape[0] * jt_all.codes_t.element_size() + 4
-    k6_3m = bound(probe_bytes(tiles_3m, jt_all.block_t, all_row, luts_join),
-                  tiles_3m.numel() * jt_all.block_t * luts_join.shape[1],
-                  "fp32")
-    log(f"[5] bound budget_adc at the 3M join (B=512 P={tiles_3m.shape[1]} "
-        f"block_t={jt_all.block_t} 30x32): {k6_3m[0]:.4f} ms ({k6_3m[1]}) "
-        f"on {card}")
+    # K6 through the entry point that takes its slots per block and ring
+    # depth (0: the kernel's choice), at the 3M join's shape (10 launches
+    # per call there), the IVFADC batch's and the 100k join's (the shape K7
+    # and K8 are timed at); K8 through the one that takes its staged width.
+    # 20 launches between two events, so a launch's gap is spread thin.
+    def per_launch(run, n=20):
+        def many():
+            for _ in range(n):
+                check(run() == 0, "a sweep launch failed")
+        return p50(cuda_ms(torch, many, reps=3)) / n
+
+    k6_shapes = {"3M": (luts_join, jt_all, tiles_3m),
+                 "ivfadc": (luts_ivf, tiled, tiles_ivf),
+                 "100k": (luts_join, jt100, tiles_j)}
+    k6_ms = {}
+    for shape, (lt, jt, tl) in k6_shapes.items():
+        tl = tl.to(torch.int32).contiguous()
+        k6_out = torch.empty(tl.shape[0], tl.shape[1] * jt.block_t,
+                             device=dev)
+
+        def k6_at(spb, depth, lt=lt, jt=jt, tl=tl, k6_out=k6_out):
+            return lib.pw2v_budget_adc_spb(
+                lt.data_ptr(), jt.codes_t.data_ptr(),
+                jt.codes_t.element_size(), jt.rowterm.data_ptr(),
+                tl.data_ptr(), k6_out.data_ptr(), *lt.shape,
+                jt.codes_t.shape[1], tl.shape[1], jt.block_t, spb, depth,
+                stream)
+
+        k6_ms[shape] = per_launch(lambda: k6_at(0, 0))
+        for spb, depth in ((0, 2), (0, 3), (0, 4), (2, 0), (4, 0), (8, 0),
+                           (12, 0), (16, 0), (24, 0), (32, 0)):
+            if spb <= tl.shape[1]:
+                sweep[f"K6 {shape} spb={spb} depth={depth}"] = per_launch(
+                    lambda: k6_at(spb, depth))
+        del k6_out
+    nt_j = jt100.codes_t.shape[1] // jt100.block_t
+    qidx_8, tog_8, _ = kernels._grouped_layout(tiles_j.to(torch.int32), nt_j,
+                                               32)
+    k8_out = torch.empty(qidx_8.numel(), jt100.block_t, device=dev)
+
+    def k8_at(wmax):
+        return lib.pw2v_budget_adc_grouped_int8_w(
+            ql_join.data_ptr(), sc_join.data_ptr(), jt100.codes_t.data_ptr(),
+            jt100.codes_t.element_size(), jt100.rowterm.data_ptr(),
+            qidx_8.data_ptr(), tog_8.data_ptr(), k8_out.data_ptr(),
+            *ql_join.shape, jt100.codes_t.shape[1], tog_8.shape[0], 32,
+            jt100.block_t, wmax, stream)
+
+    for wmax in (0, 32, 16, 8):
+        sweep[f"K8 wmax={wmax}"] = per_launch(lambda: k8_at(wmax))
+    log(f"[5] sweep of K6 (slots per block, ring depth; 0 = its choice) and "
+        f"K8 (widest staging; 0 = its choice), per launch of 20: " + ", ".join(
+        f"{k} {t:.4f} ms" for k, t in sweep.items() if k[:3] in ("K6 ", "K8 "))
+        + f" on {card}")
+    # the 100k join's groups: (query, tile) pairs, groups with a real slot,
+    # and how many of them each staged width takes
+    per_group = (qidx_8 < qj.shape[0]).sum(1)
+    real_groups = int((per_group > 0).sum())
+    group_stats = {
+        "pairs": int(per_group.sum()), "groups": int(tog_8.shape[0]),
+        "real_groups": real_groups,
+        "mean_queries_per_real_group": float(per_group.sum()) / real_groups,
+        "groups_by_width": {w: int(((per_group > lo) & (per_group <= w)).sum())
+                            for lo, w in ((0, 4), (4, 8), (8, 16), (16, 32))}}
+    log(f"[5] join 100k groups (rows 32): {group_stats}")
+    # how much of each plan is padding: slots that name the inf tile
+    inf_share = {}
+    for shape, (_, jt, tl) in k6_shapes.items():
+        last = jt.codes_t.shape[1] // jt.block_t - 1
+        inf_share[shape] = float((tl == last).float().mean())
+    log("[5] share of plan slots on the inf tile: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in inf_share.items()))
+    # K6's bound and time at the two join shapes
+    k6_bounds = {}
+    for shape in ("3M", "100k"):
+        lt, jt, tl = k6_shapes[shape]
+        row_b = jt.codes_t.shape[0] * jt.codes_t.element_size() + 4
+        ops = adc_probe_ops(tl, jt, lt.shape[1])
+        k6_bounds[shape] = bound(probe_bytes(tl, jt.block_t, row_b, lt), ops,
+                                 "fp32", 4 * ops, shared_rate)
+        log(f"[5] kernel budget_adc at the {shape} join (B={tl.shape[0]} "
+            f"P={tl.shape[1]} block_t={jt.block_t} 30x32): "
+            f"{k6_ms[shape]:.4f} ms per launch of 20, bound "
+            f"{k6_bounds[shape][0]:.4f} ms ({k6_bounds[shape][1]}, "
+            f"{k6_bounds[shape][2]}) on {card}")
+    del k8_out
     del luts, ql, sc, sweep_out, dense_out, k10_out
 
     def joined(method, targets, alpha, stats, lut_dtype="bf16"):
@@ -1291,8 +1382,10 @@ def main() -> int:
     log(f"[8] the whole run took {time.perf_counter() - started:.1f} s")
     log(json.dumps({"recall": rec, "paths_ms_per_query": times,
                     "insert": inserted, "path_launches": path_launches,
-                    "sweep_ms": sweep, "budget_adc_bound_3m_join": k6_3m,
-                    "gpu": card}))
+                    "sweep_ms": sweep, "budget_adc_join_ms": k6_ms,
+                    "budget_adc_join_bounds": k6_bounds,
+                    "join_100k_groups": group_stats,
+                    "inf_tile_share": inf_share, "gpu": card}))
     log(json.dumps(summary))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,22 @@
 // Shared pieces of the ADC kernels.
 //
-// - The query-major layout (K6 budget_adc.cu, K7 budget_adc_grouped.cu):
-//   the LUTs of up to ADC_MAX_QB queries, one thread per code row, one
-//   accumulator per staged query (adc_stage_luts, adc_row).
+// - The query-major layout (K7 budget_adc_grouped.cu): the LUTs of up to
+//   ADC_MAX_QB queries, one thread per code row, one accumulator per staged
+//   query (adc_stage_luts, adc_row). K6 (budget_adc.cu) takes only the
+//   shared-memory limits from here.
 // - The query-minor walk (K2 adc_scan.cu, K3 adc_scan_int8.cu, K4
 //   adc_scan_binned.cu, K5 adc_scan_binned_int8.cu): adc_walk with a lookup
 //   policy (AdcF32, AdcU8) and an epilogue (AdcDense here, K4's and K5's
 //   bin mins in their own files).
-// - int8 LUTs query-minor, one thread per row (K8): adc_i8_*.
+// - K8 (budget_adc_grouped_int8.cu) stages the int8 LUTs of a group's slots
+//   query-minor by wide loads (adc_u8_stage_ids) and sums them with AdcU8,
+//   one thread per code row.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "cp_async.cuh"
 
 #define ADC_THREADS 256
 #define ADC_MAX_QB 8
@@ -92,28 +97,6 @@ static inline cudaError_t adc_allow_smem(Kernel kernel, size_t bytes) {
 
 #define ADC_ROWS 128  // rows per slab step: one per thread group
 #define ADC_WAVES 4   // blocks launched per SM slot, for balance
-
-__device__ __forceinline__ uint32_t adc_smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, of which the first `bytes` are read and the
-// rest zero-filled.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
 
 // Bytes of QB staged LUTs, rounded up so what follows is 16-byte aligned.
 __host__ __device__ inline size_t adc_lut_bytes(int qb, int mk, int elem) {
@@ -305,7 +288,7 @@ __device__ __forceinline__ void adc_f32_stage(float* lut_s,
   __syncthreads();
 }
 
-// ------------------------------------------------ int8 lookups (K3, K5)
+// --------------------------------------------- int8 lookups (K3, K5, K8)
 //
 // The int8 LUT is staged biased to uint8, l + 127 in [0, 254], so the sum of
 // m lookups is a nonnegative integer below m*255. Packed (m <= ADC_U8_MAX_M):
@@ -314,11 +297,14 @@ __device__ __forceinline__ void adc_f32_stage(float* lut_s,
 // holds at most m*254 < 65536, so nothing carries between lanes. Unpacked
 // (a larger m): one int32 accumulator per query. Either way the exact sum is
 // the lane minus 127*m, and the one rescale rounds as the plain version's.
+//
+// An entry is read in L parts of F queries: by L neighbouring threads in the
+// walk; in K8, where a thread owns its row, in the thread's own L turns.
 #define ADC_U8_MAX_M 258
 
-template <int QB, bool Packed>
+template <int QB, bool Packed, int L_ = (QB >= 16 ? 4 : QB / 4)>
 struct AdcU8 {
-  static constexpr int L = QB >= 16 ? 4 : QB / 4;  // threads that share a row
+  static constexpr int L = L_;      // parts of one entry
   static constexpr int F = QB / L;  // queries a thread keeps: 16, 8 or 4
   static constexpr int W = F / 4;   // 32-bit words of one lookup
   const uint8_t* lut_s;
@@ -414,6 +400,75 @@ __device__ __forceinline__ void adc_u8_stage(uint8_t* lut_s,
   __syncthreads();
 }
 
+// adc_u8_stage for the queries qid_s[0 .. QB) of a (B, m, k) LUT tensor (a
+// negative id stages the bias, 127, which any lane holds). With word_luts
+// (every LUT 4-byte aligned: the base is and mk % 4 == 0) a thread reads
+// four entries of four queries as four 32-bit words, biases them, transposes
+// the 4x4 bytes with byte permutes and stores four words, one per entry. A
+// warp covers 32/WQ runs of four entries of all WQ query words; its four
+// stores would meet in a quarter of the banks, so each quarter-warp starts
+// at another of its four entries (a rotation by lane/8) and every store is
+// free of bank conflicts. Without word_luts: byte loads, one word per thread.
+template <int QB>
+__device__ __forceinline__ void adc_u8_stage_ids(uint8_t* lut_s,
+                                                 const int8_t* __restrict__ luts,
+                                                 const int* qid_s, int mk,
+                                                 int word_luts) {
+  constexpr int WQ = QB / 4;  // words per entry
+  uint32_t* dst = reinterpret_cast<uint32_t*>(lut_s);
+  if (word_luts) {
+    const int total = WQ * (mk / 4);
+    const int rot = (threadIdx.x >> 3) & 3;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < total; i += blockDim.x) {
+      const int qq = i % WQ;
+      const int r4 = i / WQ;
+      uint32_t x[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int id = qid_s[4 * qq + t];
+        const uint32_t w =
+            id >= 0 ? __ldg(reinterpret_cast<const uint32_t*>(
+                                luts + (long long)id * mk) + r4)
+                    : 0u;
+        x[t] = __vadd4(w, 0x7f7f7f7fu);  // l + 127 in every byte
+      }
+      // x[t] holds entries 4*r4 .. 4*r4+3 of query 4*qq + t; e[i] holds
+      // entry 4*r4 + i of the four queries, query t in byte t
+      const uint32_t lo01 = __byte_perm(x[0], x[1], 0x5140);
+      const uint32_t hi01 = __byte_perm(x[0], x[1], 0x7362);
+      const uint32_t lo23 = __byte_perm(x[2], x[3], 0x5140);
+      const uint32_t hi23 = __byte_perm(x[2], x[3], 0x7362);
+      uint32_t e[4] = {__byte_perm(lo01, lo23, 0x5410),
+                       __byte_perm(lo01, lo23, 0x7632),
+                       __byte_perm(hi01, hi23, 0x5410),
+                       __byte_perm(hi01, hi23, 0x7632)};
+      uint32_t a[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) a[c] = rot & 1 ? e[(c + 1) & 3] : e[c];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {  // v = e[(c + rot) & 3]
+        const uint32_t v = rot & 2 ? a[(c + 2) & 3] : a[c];
+        dst[(4 * r4 + ((c + rot) & 3)) * WQ + qq] = v;
+      }
+    }
+  } else {
+    const int total = WQ * mk;
+    for (int i = threadIdx.x; i < total; i += blockDim.x) {
+      const int qq = i % WQ;
+      const int r = i / WQ;
+      uint32_t word = 0;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int id = qid_s[4 * qq + t];
+        const int l = id >= 0 ? (int)luts[(long long)id * mk + r] : 0;
+        word |= (uint32_t)(uint8_t)(l + 127) << (8 * t);
+      }
+      dst[i] = word;
+    }
+  }
+}
+
 // ------------------------------------------- the dense epilogue (K2, K3)
 //
 // Thread (j, v) stores the F results of its row straight to their F query
@@ -447,85 +502,3 @@ struct AdcDense {
 
   __device__ __forceinline__ void tile_end(long long) {}
 };
-
-// ---------------------------------------------------------------- int8 LUTs
-//
-// K8 (budget_adc_grouped_int8.cu) takes per-query int8 LUTs with one
-// float32 scale per query, one thread per code row. A query's int8 LUT is
-// a quarter of its float32 one (3 KB at 12x256),
-// so a block stages up to ADC_I8_MAX_QB = 32 queries. The staged LUTs are
-// query-minor: entry (j, c) of the QB staged
-// queries is QB consecutive bytes, so a thread fetches the lookups of all its
-// queries for one code with QB/16 16-byte shared-memory loads, and sums them
-// into QB int32 accumulators. The sums are exact (|sum| <= m*127).
-#define ADC_I8_MAX_QB 32
-
-// Queries staged per int8 block for an (m, k) codebook: the largest of 32,
-// 16, 8 and 4 whose LUTs fit in ADC_SMEM_TARGET, else 4 if four fit in a
-// block's shared memory at all, else 0.
-static inline int adc_i8_query_block(int m, int k) {
-  const long long per_query = (long long)m * k;
-  for (int qb = ADC_I8_MAX_QB; qb >= 4; qb /= 2)
-    if (qb * per_query <= ADC_SMEM_TARGET) return qb;
-  return 4 * per_query <= ADC_SMEM_MAX ? 4 : 0;
-}
-
-// Stage the int8 LUTs of nq queries into lut_s, query-minor: lut_s[r*QB + q]
-// = luts[qid[q], r] for r = j*k + c. Slots q >= nq (and queries whose id is
-// negative) are zero. Reads run along r, so they coalesce.
-template <int QB>
-__device__ __forceinline__ void adc_i8_stage(int8_t* lut_s,
-                                             const int8_t* __restrict__ luts,
-                                             const int* qid, int nq, int mk) {
-  for (int i = threadIdx.x; i < QB * mk; i += blockDim.x) {
-    const int q = i / mk;
-    const int r = i - q * mk;
-    const int id = q < nq ? qid[q] : -1;
-    lut_s[r * QB + q] = id >= 0 ? luts[(long long)id * mk + r] : (int8_t)0;
-  }
-  __syncthreads();
-}
-
-// acc[q] += staged int8 lookup of entry r = j*k + c, for all QB queries.
-template <int QB>
-__device__ __forceinline__ void adc_i8_add(int (&acc)[QB],
-                                           const int8_t* lut_s, int r) {
-  const int8_t* e = lut_s + r * QB;
-  uint32_t w[QB / 4];
-  if constexpr (QB % 16 == 0) {
-#pragma unroll
-    for (int v = 0; v < QB / 16; ++v) {
-      const uint4 x = reinterpret_cast<const uint4*>(e)[v];
-      w[4 * v] = x.x;
-      w[4 * v + 1] = x.y;
-      w[4 * v + 2] = x.z;
-      w[4 * v + 3] = x.w;
-    }
-  } else if constexpr (QB == 8) {
-    const uint2 x = *reinterpret_cast<const uint2*>(e);
-    w[0] = x.x;
-    w[1] = x.y;
-  } else {
-    static_assert(QB == 4, "QB must be 4, 8, 16 or 32");
-    w[0] = *reinterpret_cast<const uint32_t*>(e);
-  }
-#pragma unroll
-  for (int t = 0; t < QB / 4; ++t) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      acc[4 * t + i] += (int)(int8_t)(uint8_t)(w[t] >> (8 * i));
-  }
-}
-
-// Int8 ADC sums of code row n for all QB staged queries, over subspaces
-// j = 0 .. m-1 (integer sums: the order does not matter).
-template <int QB, typename CodeT>
-__device__ __forceinline__ void adc_i8_row(int (&acc)[QB], const int8_t* lut_s,
-                                           const CodeT* __restrict__ codes,
-                                           long long n, long long N, int m,
-                                           int k) {
-#pragma unroll
-  for (int q = 0; q < QB; ++q) acc[q] = 0;
-  for (int j = 0; j < m; ++j)
-    adc_i8_add<QB>(acc, lut_s, j * k + (int)codes[(long long)j * N + n]);
-}

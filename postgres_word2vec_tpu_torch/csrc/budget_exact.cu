@@ -87,7 +87,8 @@ extern "C" int pw2v_budget_exact(const void* queries, const void* vecs,
   if (B < 1 || P < 1 || D < 8 || D % 8 != 0 || D > 32 * BX_MAX_CHUNKS * 8 ||
       !budget_shape_ok(na, block_t))
     return cudaErrorInvalidValue;
-  const int spb = budget_slots_per_block(B, P);
+  const int spb =
+      budget_slots_per_block(B, P, BUDGET_TARGET_BLOCKS, BUDGET_MAX_SPB);
   const long long gy = (P + spb - 1) / spb;
   if (gy > 65535) return cudaErrorInvalidValue;
   const dim3 grid((unsigned)B, (unsigned)gy);

@@ -1,1 +1,2 @@
-"""Evaluation helpers ported so far: the synthetic data generator."""
+"""Evaluation helpers ported so far: the synthetic data generator and the
+join's wall-time spread (``join_wall.py``)."""

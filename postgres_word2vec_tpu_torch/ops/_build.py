@@ -42,6 +42,8 @@ SIGNATURES = {
     "pw2v_fused_exact_scan": (_P, _P, _P, _P, _P, _I, _I, _I64, _I, _P),
     "pw2v_budget_adc": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I64, _I, _I,
                         _P),
+    "pw2v_budget_adc_spb": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I64, _I, _I,
+                            _I, _I, _P),
     "pw2v_budget_adc_grouped": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
                                 _I64, _I, _I, _I, _P),
     "pw2v_budget_exact": (_P, _P, _P, _P, _P, _I, _I, _I64, _I, _I, _P),
@@ -57,6 +59,8 @@ SIGNATURES = {
                                      _I64, _I, _I, _I, _P),
     "pw2v_budget_adc_grouped_int8": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
                                      _I, _I64, _I, _I, _I, _P),
+    "pw2v_budget_adc_grouped_int8_w": (_P, _P, _P, _I, _P, _P, _P, _P, _I,
+                                       _I, _I, _I64, _I, _I, _I, _I, _P),
 }
 
 

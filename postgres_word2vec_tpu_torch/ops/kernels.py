@@ -14,11 +14,13 @@ kernels, written in CUDA C++ for ``sm_90a`` (sources in ``csrc/``, built by
   (``csrc/adc_scan_binned.cu``);
 - K5 :func:`adc_scan_binned_int8` — its int8 twin, an exact packed key
   (``csrc/adc_scan_binned_int8.cu``);
-- K6 :func:`budget_adc` — budgeted tile-gather ADC, one query per block
+- K6 :func:`budget_adc` — budgeted tile-gather ADC, one query per block,
+  its code tiles through a ring of asynchronous copies
   (``csrc/budget_adc.cu``), the IVFADC probe and the sparse join;
 - K7 :func:`budget_adc_grouped` — the same contract with the (query,
   tile) pairs grouped by tile (``csrc/budget_adc_grouped.cu``);
-- K8 :func:`budget_adc_grouped_int8` — K7 over int8 LUTs
+- K8 :func:`budget_adc_grouped_int8` — K7 over int8 LUTs, staged only
+  for a group's real slots and summed in packed 16-bit lanes
   (``csrc/budget_adc_grouped_int8.cu``);
 - K9 :func:`budget_exact` — budgeted tile-gather exact scores
   (``csrc/budget_exact.cu``), the join's ``method=1``;
@@ -703,7 +705,9 @@ def budget_adc(luts: torch.Tensor, codes_t: torch.Tensor,
     uint8/int16 cell-aligned codes, NA a multiple of ``block_t``;
     ``rowterm`` (NA,) float32 additive row term (+inf on padding);
     ``tiles`` (B, P) tile ids. On the card an id outside the table reads
-    as the inf tile."""
+    as the inf tile, and slots on the table's last tile (the inf tile, a
+    plan's padding) come out +inf without a read once the kernel has seen
+    that its row terms are all +inf; LUT entries must be finite."""
     if not _on_cuda(luts, codes_t, rowterm, tiles):
         return budget_adc_plain(luts, codes_t, rowterm, tiles,
                                 block_t=block_t)
@@ -763,7 +767,8 @@ def budget_adc_grouped_int8(luts: torch.Tensor, scale: torch.Tensor,
                             rows: int = 8) -> torch.Tensor:
     """Tile-grouped budgeted ADC over int8 LUTs (K8): K7's grouping glue
     and contract, ``float(Σ_j lut) · scale + rowterm`` with the per-query
-    ``scale`` of :func:`quantize_luts_int8`. CPU tensors take
+    ``scale`` of :func:`quantize_luts_int8`, whose LUTs lie in [−127, 127];
+    finite results equal the plain version's bit for bit. CPU tensors take
     :func:`budget_adc_plain` with the same int8 LUTs."""
     if not _on_cuda(luts, scale, codes_t, rowterm, tiles):
         return budget_adc_plain(luts, codes_t, rowterm, tiles,
@@ -773,6 +778,10 @@ def budget_adc_grouped_int8(luts: torch.Tensor, scale: torch.Tensor,
     na = codes_t.shape[1]
     t = _check_budget(na, block_t, tiles, B, rowterm)
     _require(rows >= 1, f"rows must be ≥ 1, got {rows}")
+    _require(4 * m * k + m * block_t * codes_t.element_size()
+             <= _MAX_LUT_BYTES - 1024,
+             f"four int8 LUTs ({m}×{k}) and a code tile of {block_t} rows "
+             f"exceed shared memory")
     qidx, tog, row = _grouped_layout(t, na // block_t, rows)
     groups = tog.shape[0]
     out = torch.empty(groups * rows, block_t, dtype=torch.float32,

@@ -17,7 +17,8 @@ Tolerances:
   than the plain matmul's; exact ties take the smallest id;
 - K6 / K7 budget ADC: atol 1e-5 on the finite entries and the same +inf
   entries (subspaces summed in the plain version's order, then the row
-  term: they agree bit for bit in practice);
+  term: they agree bit for bit in practice, and K6's ring, slot-count and
+  unaligned-route cases are held to 0);
 - K9 / K10 budget exact: atol 1e-4 on the finite shifted scores and the
   same +inf entries (float32 queries, bf16 rows widened exactly, float32
   sums over 304 products in another order than the plain matmul's; K10
@@ -27,7 +28,7 @@ Tolerances:
   16-bit lanes too, at m up to 258, and their unpacked sums past it) and
   the plain version's rounding of the rescale (and of K8's row-term add),
   so K3 and K5 are held to equality (mins, ids and +inf / −1 slots) and
-  K8 to atol 1e-5 on the finite entries with the same +inf entries.
+  K8 to 0 on the finite entries with the same +inf entries.
 """
 
 import numpy as np
@@ -278,6 +279,187 @@ def test_budget_adc_matches_plain(block_t, B, m, k, dtype):
     _assert_budget_close(got, want, 1e-5)
 
 
+# K6's ring of code tiles: slot counts around a block's share, plans of one
+# tile, of inf tiles and of bad ids, the routes without cp.async, every
+# slots-per-block and ring depth of the sweep entry point.
+
+@pytest.mark.parametrize("P", (1, 5, 33))
+@pytest.mark.parametrize("m,k,dtype", BUDGET_BOOKS)
+def test_budget_adc_slot_counts_match_plain(P, m, k, dtype):
+    luts, codes_t, rowterm, tiles = _budget_case(P + m, 37, m, k, dtype, 256,
+                                                 P=P)
+    got = kernels.budget_adc(luts, codes_t, rowterm, tiles, block_t=256)
+    _assert_budget_close(got, kernels.budget_adc_plain(
+        luts, codes_t, rowterm, tiles, block_t=256), 0.0)
+
+
+@pytest.mark.parametrize("plan", ("inf_tile", "bad_ids", "one_tile"))
+def test_budget_adc_uniform_plans(plan):
+    """A plan of nothing but the inf tile, one of nothing but ids outside
+    the table (+inf everywhere, nothing read), and one whose slots all name
+    the same tile (every unit of a block's ring holds the same rows)."""
+    luts, codes_t, rowterm, tiles = _budget_case(21, 29, 30, 32, torch.uint8,
+                                                 256, P=11)
+    nt = codes_t.shape[1] // 256 - 1
+    tiles[:] = {"inf_tile": nt, "bad_ids": -3, "one_tile": 2}[plan]
+    if plan == "bad_ids":
+        tiles[::2] = nt + 1
+    got = kernels.budget_adc(luts, codes_t, rowterm, tiles, block_t=256)
+    torch.cuda.synchronize()
+    if plan == "one_tile":
+        _assert_budget_close(got, kernels.budget_adc_plain(
+            luts, codes_t, rowterm, tiles, block_t=256), 0.0)
+        assert torch.isfinite(got).any()
+    else:
+        assert torch.isinf(got).all() and (got > 0).all()
+
+
+@pytest.mark.parametrize("route", ("block_t", "codes", "luts"))
+@pytest.mark.parametrize("m,k,dtype", ((12, 256, torch.uint8),
+                                       (15, 1024, torch.int16),
+                                       (5, 6, torch.uint8)))
+def test_budget_adc_takes_unaligned_inputs(route, m, k, dtype):
+    """K6 copies its tiles without cp.async when a tile's code runs do not
+    start 16-byte aligned (block_t = 100; a table one element into its
+    buffer) and its LUT when that is not (a LUT tensor one float into its
+    buffer; 5x6 = 30 floats a query)."""
+    block_t = 100 if route == "block_t" else 128
+    luts, codes_t, rowterm, tiles = _budget_case(m + block_t, 57, m, k, dtype,
+                                                 block_t)
+    if route == "codes":
+        buf = torch.zeros(codes_t.numel() + 1, dtype=dtype, device="cuda")
+        buf[1:] = codes_t.reshape(-1)
+        codes_t = buf[1:].view(m, -1)
+        assert codes_t.data_ptr() % 16 != 0
+    if route == "luts":
+        buf = torch.zeros(luts.numel() + 1, device="cuda")
+        buf[1:] = luts.reshape(-1)
+        luts = buf[1:].view(luts.shape)
+        assert luts.data_ptr() % 16 != 0 and luts.is_contiguous()
+    got = kernels.budget_adc(luts, codes_t, rowterm, tiles, block_t=block_t)
+    _assert_budget_close(got, kernels.budget_adc_plain(
+        luts, codes_t, rowterm, tiles, block_t=block_t), 0.0)
+
+
+@pytest.mark.parametrize("spb", (0, 1, 2, 3, 4, 8, 12, 16, 24, 32, 64))
+@pytest.mark.parametrize("depth", (0, 2, 3, 4))
+def test_budget_adc_every_slots_per_block_and_depth_matches_plain(spb, depth):
+    """K6 through the sweep entry point at each slots-per-block and ring
+    depth (0: the kernel's own choice), P = 21 slots so that the last block
+    of a query is ragged."""
+    from postgres_word2vec_tpu_torch.ops import _build
+
+    B, m, k, block_t, P = 17, 12, 256, 256, 21
+    luts, codes_t, rowterm, tiles = _budget_case(spb + depth, B, m, k,
+                                                 torch.uint8, block_t, P=P)
+    tiles[1, 3] = -1
+    out = torch.full((B, P * block_t), float("nan"), device="cuda")
+    err = _build.load().pw2v_budget_adc_spb(
+        luts.data_ptr(), codes_t.data_ptr(), 1, rowterm.data_ptr(),
+        tiles.data_ptr(), out.data_ptr(), B, m, k, codes_t.shape[1], P,
+        block_t, spb, depth, torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    want = kernels.budget_adc_plain(luts, codes_t, rowterm,
+                                    tiles.clamp(min=0), block_t=block_t)
+    want[1, 3 * block_t:4 * block_t] = float("inf")
+    _assert_budget_close(out, want, 0.0)
+
+
+@pytest.mark.parametrize("block_t", (128, 512))
+@pytest.mark.parametrize("m,k,dtype", ((60, 16, torch.uint8),
+                                       (7, 100, torch.uint8),
+                                       (6, 600, torch.int16),
+                                       (5, 2000, torch.int16)))
+def test_budget_adc_pads_lut_rows_to_its_fixed_strides(block_t, m, k, dtype):
+    """uint8 tiles of at most 256 rows with k ≤ 32 take LUT rows 32 floats
+    apart in shared memory (k = 16 is padded up to that); k = 100, 600 and
+    2000 and 512-row tiles take the strides at run time."""
+    luts, codes_t, rowterm, tiles = _budget_case(block_t + k, 31, m, k, dtype,
+                                                 block_t, P=9)
+    got = kernels.budget_adc(luts, codes_t, rowterm, tiles, block_t=block_t)
+    _assert_budget_close(got, kernels.budget_adc_plain(
+        luts, codes_t, rowterm, tiles, block_t=block_t), 0.0)
+
+
+@pytest.mark.parametrize("block_t", (6, 32, 50, 64, 100, 512, 2048))
+@pytest.mark.parametrize("m,k,dtype", BUDGET_BOOKS)
+def test_budget_adc_groups_and_rows_per_thread_match_plain(block_t, m, k,
+                                                           dtype):
+    """K6's threads take four rows each and form groups of a quarter of a
+    tile's rows: eight groups of a warp at 32 to 100 rows, two at 512, one
+    that loops at 2048; tiles of 6 and 50 rows (not a multiple of four) take
+    one row a thread. P = 19 slots leave the groups unequal shares, and 23
+    queries make more units than the launches that take a row a thread."""
+    luts, codes_t, rowterm, tiles = _budget_case(block_t + m, 23, m, k, dtype,
+                                                 block_t, P=19)
+    got = kernels.budget_adc(luts, codes_t, rowterm, tiles, block_t=block_t)
+    _assert_budget_close(got, kernels.budget_adc_plain(
+        luts, codes_t, rowterm, tiles, block_t=block_t), 0.0)
+
+
+@pytest.mark.parametrize("case", ("out_off_16_bytes", "slots_past_threads"))
+def test_budget_adc_sweep_entry_odd_layouts(case):
+    """An output 4 bytes off a 16-byte boundary takes single stores; a LUT
+    that leaves room for one group of a warp still stages a block of 64
+    slots (more slots than threads)."""
+    from postgres_word2vec_tpu_torch.ops import _build
+
+    if case == "out_off_16_bytes":
+        B, m, k, dtype, block_t, P, spb = 40, 30, 32, torch.uint8, 256, 9, 0
+    else:
+        B, m, k, dtype, block_t, P, spb = 5, 12, 4096, torch.int16, 16, 70, 64
+    luts, codes_t, rowterm, tiles = _budget_case(5, B, m, k, dtype, block_t,
+                                                 P=P)
+    buf = torch.full((B * P * block_t + 1,), float("nan"), device="cuda")
+    out = buf[1:] if case == "out_off_16_bytes" else buf[:-1]
+    assert (out.data_ptr() % 16 != 0) == (case == "out_off_16_bytes")
+    err = _build.load().pw2v_budget_adc_spb(
+        luts.data_ptr(), codes_t.data_ptr(), codes_t.element_size(),
+        rowterm.data_ptr(), tiles.data_ptr(), out.data_ptr(), B, m, k,
+        codes_t.shape[1], P, block_t, spb, 0,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    _assert_budget_close(out.view(B, P * block_t), kernels.budget_adc_plain(
+        luts, codes_t, rowterm, tiles, block_t=block_t), 0.0)
+
+
+@pytest.mark.parametrize("last", ("all_inf", "one_finite_row"))
+def test_budget_adc_kernels_skip_the_last_tile_only_if_all_inf(last):
+    """K6 and K8 write +inf for slots on the table's last tile without
+    reading its codes, but only after seeing that all its row terms are
+    +inf: a last tile with one finite row is summed like any other."""
+    luts, codes_t, rowterm, tiles = _budget_case(41, 47, 30, 32, torch.uint8,
+                                                 256, P=7)
+    nt = codes_t.shape[1] // 256 - 1
+    tiles[:, 4:] = nt
+    if last == "one_finite_row":
+        rowterm[nt * 256 + 77] = 0.25
+    want = kernels.budget_adc_plain(luts, codes_t, rowterm, tiles,
+                                    block_t=256)
+    assert bool(torch.isfinite(want[:, 4 * 256:]).any()) == (
+        last == "one_finite_row")
+    _assert_budget_close(kernels.budget_adc(
+        luts, codes_t, rowterm, tiles, block_t=256), want, 0.0)
+    ql, sc = kernels.quantize_luts_int8(luts)
+    _assert_budget_close(
+        kernels.budget_adc_grouped_int8(ql, sc, codes_t, rowterm, tiles,
+                                        block_t=256, rows=32),
+        kernels.budget_adc_plain(ql, codes_t, rowterm, tiles, block_t=256,
+                                 scale=sc), 0.0)
+
+
+@pytest.mark.parametrize("B", (3, 40))
+def test_budget_adc_splits_tiles_that_do_not_fit_twice(B):
+    """A 192 KB LUT (12x4096) leaves no room for two whole 1024-row tiles
+    of int16 codes: the ring's unit becomes half a tile, a row a thread in a
+    launch of few units (B = 3), four rows a thread in a larger one."""
+    luts, codes_t, rowterm, tiles = _budget_case(31, B, 12, 4096, torch.int16,
+                                                 1024, nt=3, P=4)
+    got = kernels.budget_adc(luts, codes_t, rowterm, tiles, block_t=1024)
+    _assert_budget_close(got, kernels.budget_adc_plain(
+        luts, codes_t, rowterm, tiles, block_t=1024), 0.0)
+
+
 @pytest.mark.parametrize("block_t", BLOCKS)
 @pytest.mark.parametrize("B", B_EDGES)
 @pytest.mark.parametrize("m,k,dtype", BUDGET_BOOKS)
@@ -417,7 +599,7 @@ def test_budget_adc_auto_int8_runs_k8_or_warns():
         before["budget_adc_grouped_int8"] + 1)
     ql, sc = kernels.quantize_luts_int8(luts)
     _assert_budget_close(got, kernels.budget_adc_plain(
-        ql, codes_t, rowterm, tiles, block_t=256, scale=sc), 1e-5)
+        ql, codes_t, rowterm, tiles, block_t=256, scale=sc), 0.0)
     sparse = tiles[:2, :1]
     with pytest.warns(UserWarning, match="no int8 variant"):
         out = kernels.budget_adc_auto(luts[:2], codes_t, rowterm, sparse,
@@ -676,7 +858,137 @@ def test_budget_adc_grouped_int8_matches_plain(block_t, B, m, k, dtype, rows):
                                           block_t=block_t, rows=rows)
     assert kernels.KERNELS["budget_adc_grouped_int8"].launches == before + 1
     _assert_budget_close(got, kernels.budget_adc_plain(
-        ql, codes_t, rowterm, tiles, block_t=block_t, scale=sc), 1e-5)
+        ql, codes_t, rowterm, tiles, block_t=block_t, scale=sc), 0.0)
+
+
+# K8's staged widths, lanes and routes
+
+GROUP_SIZES = (1, 7, 8, 9, 16, 17, 32)
+
+
+def _sized_groups_case(seed, m, k, dtype, block_t, sizes=GROUP_SIZES):
+    """One slot per query; tile t is probed by sizes[t] queries, so with
+    rows = 32 group t holds exactly that many real slots."""
+    B = sum(sizes)
+    luts, codes_t, rowterm, _ = _budget_case(seed, B, m, k, dtype, block_t,
+                                             nt=len(sizes), P=1)
+    tiles = torch.repeat_interleave(
+        torch.arange(len(sizes), device="cuda"),
+        torch.tensor(sizes, device="cuda")).to(torch.int32)[:, None]
+    perm = torch.randperm(B, generator=torch.Generator().manual_seed(seed))
+    return luts, codes_t, rowterm, tiles[perm.cuda()].contiguous()
+
+
+def _k8_at_width(ql, sc, codes_t, rowterm, tiles, block_t, rows, wmax):
+    """K8 through the entry point that takes the staged width → (CUDA
+    error code, result)."""
+    from postgres_word2vec_tpu_torch.ops import _build
+
+    B, m, k = ql.shape
+    na = codes_t.shape[1]
+    qidx, tog, row = kernels._grouped_layout(tiles, na // block_t, rows)
+    out = torch.full((tog.shape[0] * rows, block_t), float("nan"),
+                     device="cuda")
+    err = _build.load().pw2v_budget_adc_grouped_int8_w(
+        ql.data_ptr(), sc.data_ptr(), codes_t.data_ptr(),
+        codes_t.element_size(), rowterm.data_ptr(), qidx.data_ptr(),
+        tog.data_ptr(), out.data_ptr(), B, m, k, na, tog.shape[0], rows,
+        block_t, wmax, torch.cuda.current_stream().cuda_stream)
+    return err, kernels._reassemble(out, row, tiles)
+
+
+@pytest.mark.parametrize("wmax", (0, 4, 8, 16, 32))
+@pytest.mark.parametrize("m,k,dtype", ((30, 32, torch.uint8),
+                                       (12, 1024, torch.int16)))
+def test_budget_adc_grouped_int8_every_group_size_and_width(wmax, m, k,
+                                                            dtype):
+    """Groups of 1, 7, 8, 9, 16, 17 and 32 real queries at every staged
+    width: each group takes the least width that holds it (or several
+    passes of ``wmax`` slots); a width whose LUTs do not fit beside the
+    tile is refused."""
+    luts, codes_t, rowterm, tiles = _sized_groups_case(wmax + m, m, k, dtype,
+                                                       256)
+    ql, sc = kernels.quantize_luts_int8(luts)
+    err, got = _k8_at_width(ql, sc, codes_t, rowterm, tiles, 256, 32, wmax)
+    if wmax * m * k + m * 256 * codes_t.element_size() > 226 * 1024:
+        assert err != 0    # 32 LUTs of 12x1024: over a block's shared memory
+        return
+    assert err == 0
+    _assert_budget_close(got, kernels.budget_adc_plain(
+        ql, codes_t, rowterm, tiles, block_t=256, scale=sc), 0.0)
+
+
+def test_budget_adc_grouped_int8_leaves_unused_slots_unwritten():
+    from postgres_word2vec_tpu_torch.ops import _build
+
+    luts, codes_t, rowterm, tiles = _sized_groups_case(5, 30, 32, torch.uint8,
+                                                       256)
+    ql, sc = kernels.quantize_luts_int8(luts)
+    qidx, tog, _ = kernels._grouped_layout(tiles, codes_t.shape[1] // 256, 32)
+    out = torch.full((tog.shape[0] * 32, 256), float("nan"), device="cuda")
+    err = _build.load().pw2v_budget_adc_grouped_int8(
+        ql.data_ptr(), sc.data_ptr(), codes_t.data_ptr(), 1,
+        rowterm.data_ptr(), qidx.data_ptr(), tog.data_ptr(), out.data_ptr(),
+        ql.shape[0], 30, 32, codes_t.shape[1], tog.shape[0], 32, 256,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    real = (qidx.reshape(-1) < ql.shape[0])
+    assert int(real.sum()) == sum(GROUP_SIZES)
+    assert not torch.isnan(out[real]).any()
+    assert torch.isnan(out[~real]).all()
+
+
+@pytest.mark.parametrize("m", (12, 258, 259, 300))
+@pytest.mark.parametrize("rows", (8, 32, 40))
+def test_budget_adc_grouped_int8_packed_lanes_stay_exact(m, rows):
+    """K8 sums two biased bytes per 32-bit word while m ≤ 258 and one int32
+    per query past that. Query 0's LUT is all +127 and query 1's all −127
+    (the lanes' two extremes), the rest signed. rows = 40 takes two loads
+    of slot ids per group and a second pass of 8 slots."""
+    B, k, block_t = 70, 16, 128
+    _, codes_t, rowterm, tiles = _budget_case(m + rows, B, m, k, torch.uint8,
+                                              block_t)
+    g = torch.Generator(device="cuda").manual_seed(m)
+    luts = torch.rand(B, m, k, generator=g, device="cuda") * 8.0 - 4.0
+    luts[0], luts[1] = 4.0, -4.0
+    ql, sc = kernels.quantize_luts_int8(luts)
+    assert int(ql[0].min()) == 127 and int(ql[1].max()) == -127
+    got = kernels.budget_adc_grouped_int8(ql, sc, codes_t, rowterm, tiles,
+                                          block_t=block_t, rows=rows)
+    _assert_budget_close(got, kernels.budget_adc_plain(
+        ql, codes_t, rowterm, tiles, block_t=block_t, scale=sc), 0.0)
+
+
+@pytest.mark.parametrize("route", ("aligned", "block_t", "codes", "luts"))
+@pytest.mark.parametrize("m,k,dtype", ((3, 12, torch.uint8),
+                                       (5, 6, torch.uint8),
+                                       (7, 9, torch.uint8),
+                                       (12, 256, torch.uint8),
+                                       (15, 1024, torch.int16)))
+def test_budget_adc_grouped_int8_takes_unaligned_inputs(route, m, k, dtype):
+    """K8's routes without wide loads: LUTs whose m·k is not a multiple of
+    16 (36: 32-bit words) or of 4 (30, 63: bytes), a LUT tensor one byte
+    into its buffer (bytes), and code tiles copied without cp.async
+    (block_t = 100; a table one element into its buffer)."""
+    block_t = 100 if route == "block_t" else 128
+    luts, codes_t, rowterm, tiles = _budget_case(m + k + block_t, 45, m, k,
+                                                 dtype, block_t)
+    ql, sc = kernels.quantize_luts_int8(luts)
+    if route == "codes":
+        buf = torch.zeros(codes_t.numel() + 1, dtype=dtype, device="cuda")
+        buf[1:] = codes_t.reshape(-1)
+        codes_t = buf[1:].view(m, -1)
+        assert codes_t.data_ptr() % 16 != 0
+    if route == "luts":
+        buf = torch.zeros(ql.numel() + 1, dtype=torch.int8, device="cuda")
+        buf[1:] = ql.reshape(-1)
+        ql = buf[1:].view(ql.shape)
+        assert ql.data_ptr() % 4 != 0 and ql.is_contiguous()
+    got = kernels.budget_adc_grouped_int8(ql, sc, codes_t, rowterm, tiles,
+                                          block_t=block_t, rows=32)
+    _assert_budget_close(got, kernels.budget_adc_plain(
+        ql, codes_t, rowterm, tiles, block_t=block_t, scale=sc), 0.0)
 
 
 def test_int8_kernels_read_a_bad_tile_as_the_inf_tile():

@@ -23,7 +23,8 @@ def test_the_port_has_the_slice_modules():
                  "ops.lut", "ops.adc", "ops.kernels", "ops._build",
                  "models.exact", "models.pq", "models.ivfadc",
                  "models.ivpq", "utils.shapes",
-                 "utils.tracker", "utils.convert", "evaluation.synth"):
+                 "utils.tracker", "utils.convert", "evaluation.synth",
+                 "evaluation.join_wall"):
         assert f"postgres_word2vec_tpu_torch.{name}" in mods, name
 
 
@@ -57,5 +58,21 @@ def test_the_build_is_keyed_by_the_sources():
         "adc_scan.cu", "adc_scan_binned.cu", "fused_exact_scan.cu",
         "adc_common.cuh", "budget_adc.cu", "budget_adc_grouped.cu",
         "budget_exact.cu", "budget_exact_grouped.cu", "budget_common.cuh",
-        "bf16.cuh"}
+        "bf16.cuh", "cp_async.cuh"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_every_c_entry_point_has_its_signature():
+    """Each ``extern "C" int pw2v_*`` of ``csrc/`` is bound in
+    ``_build.SIGNATURES`` with as many argument types as it has
+    parameters (ctypes would cut a pointer passed without one)."""
+    import re
+    from postgres_word2vec_tpu_torch.ops import _build
+    found = {}
+    for src in _build._sources():
+        for name, params in re.findall(
+                r'extern "C" int (pw2v_\w+)\(([^)]*)\)', src.read_text()):
+            found[name] = params.count(",") + 1
+    assert found.keys() == _build.SIGNATURES.keys()
+    for name, n in found.items():
+        assert len(_build.SIGNATURES[name]) == n, name

@@ -202,6 +202,30 @@ def test_plain_budget_adc_grouped_int8_matches_pallas_interpret(rng, rows):
     assert np.abs(got[fin] - want[fin]).max() <= 1e-5
 
 
+@pytest.mark.parametrize("m,k", [(6, 32), (5, 6)])
+def test_plain_budget_adc_grouped_int8_partial_group_matches_pallas(rng, m, k):
+    """Groups of 10 and of 13 of their 32 slots (tile 2 in ten queries' first
+    slot, tile 0 in every query's second, the inf tile in the third) beside
+    single-query groups, at m·k = 192 and at m·k = 30, which is no multiple
+    of 16 or of 4 (the card's kernel then reads its LUTs by bytes). atol
+    1e-5 as above."""
+    luts, codes, rowterm, tiles, bt = _budget_case(rng, B=13, m=m, k=k, P=3)
+    tiles[:10, 0] = 2
+    tiles[10:, 0] = [1, 3, 4]
+    tiles[:, 1] = 0
+    tiles[:, 2] = codes.shape[0] // bt - 1
+    got = np_(kernels.budget_adc_grouped(
+        to_torch(luts), to_torch(codes.T).contiguous(), to_torch(rowterm),
+        to_torch(tiles), block_t=bt, rows=32, lut_dtype="int8"))
+    want = np.asarray(pk.budget_adc_grouped_pallas(
+        to_jax(luts), to_jax(codes.T), to_jax(rowterm), to_jax(tiles),
+        block_t=bt, rows=32, lut_dtype="int8", interpret=True))
+    fin = np.isfinite(want)
+    np.testing.assert_array_equal(np.isfinite(got), fin)
+    assert fin[:10, :bt].any() and not fin[:10, :bt].all()  # tile 2: pad rows
+    assert np.abs(got[fin] - want[fin]).max() <= 1e-5
+
+
 def test_budget_adc_auto_int8_routes_as_jax(rng):
     """Grouped probes take the int8 LUTs (K8's plain version here); a
     sparse probe selects the per-query kernel, which has no int8 twin:

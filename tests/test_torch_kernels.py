@@ -267,6 +267,27 @@ def test_plain_budget_adc_matches_pallas_interpret(rng):
                                                  interpret=True), bound)
 
 
+@pytest.mark.parametrize("grouped", [False, True])
+def test_budget_adc_plan_of_inf_tiles_matches_pallas(rng, grouped):
+    """A plan that names nothing but the inf tile (a query whose cells hold
+    no target): +inf everywhere, in the port as in the JAX kernels."""
+    _, luts, codes, rowterm, tiles, bt = _budget_case(rng)
+    tiles[:] = codes.shape[0] // bt - 1
+    args = (to_torch(luts), to_torch(codes.T).contiguous(),
+            to_torch(rowterm), to_torch(tiles))
+    jargs = (to_jax(luts), to_jax(codes.T), to_jax(rowterm), to_jax(tiles))
+    if grouped:
+        got = kernels.budget_adc_grouped(*args, block_t=bt, rows=8)
+        want = pk.budget_adc_grouped_pallas(*jargs, block_t=bt,
+                                            interpret=True)
+    else:
+        got = kernels.budget_adc(*args, block_t=bt)
+        want = pk.budget_adc_pallas(*jargs, block_t=bt, interpret=True)
+    assert got.shape == want.shape
+    assert bool(torch.isinf(got).all()) and bool((got > 0).all())
+    assert np.isposinf(np.asarray(want)).all()
+
+
 def test_plain_budget_exact_matches_pallas_interpret(rng):
     q, _, _, rownorm, tiles, bt = _budget_case(rng)
     na = rownorm.shape[0]
