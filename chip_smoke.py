@@ -28,15 +28,18 @@ a user calls, and holds every hand-written kernel to its plain version:
    by side, and each kernel alone against its plain version, with its
    bound at those shapes (the largest of HBM bytes, the walk kernels'
    and the ADC budget kernels' shared-memory lookup bytes, and peak
-   operations) and, for K1 and K10, one PyTorch call of the same product
-   as a yardstick (a bf16 ``torch.matmul``; a bf16 ``torch.bmm`` over
-   pre-gathered tiles); a sweep at the main shape of the queries per block
-   (K4 at 16 and 8, K2 at 16 and 8, K3 and K5 at 64 and 32), of K10's bf16
-   parts per query value at the join's shape (3, the kernel's; 2 and 1),
-   of K6's slots per block and ring depth at the 3M join's, the IVFADC
-   batch's and the 100k join's shapes, and of K8's staged width at the
-   join's shape; K6's time and bound at the 3M and the 100k join's shapes;
-   the join's group sizes;
+   operations) and, for K1, K2 and K10, one PyTorch call of the same
+   function as a yardstick (a bf16 ``torch.matmul``; ``F.embedding_bag``
+   over the LUTs; a bf16 ``torch.bmm`` over pre-gathered tiles); a sweep
+   at the main shape of the queries per block (K4 at 16 and 8, K2 at 16
+   and 8, K3 and K5 at 64 and 32), of K10's bf16 parts per query value at
+   the join's shape (3, the kernel's; 2 and 1), of K6's slots per block
+   and ring depth at the 3M join's, the IVFADC batch's and the 100k join's
+   shapes, of K8's and K7's staged widths at the join's shape, and of K9's
+   blocks per slot at the single query's plan; K6's time and bound at the
+   3M and the 100k join's shapes, K7's beside it with its pair layout
+   alone, K9 alone at the single query and at the join's batch; the
+   join's group sizes;
 6. only with ``--profile OUT.json``: a ``torch.profiler`` window of 3
    calls per path, written to OUT.json — host wall and device time per
    call, the device's busy share, the top device kernels, and each
@@ -90,14 +93,14 @@ FLOORS = {"pq@5": 0.45, "pq_pv@5": 0.85, "fused@10": 0.95,
 # int8 recall no more than this below the same run's float-LUT recall
 INT8_DROP = {"pq_int8@5": "pq@5", "join_int8_m2_a200@5": "join_m2_a200@5"}
 INT8_MAX_DROP = 0.02
-# K2/K4/K6/K7 sum subspaces in the plain version's order (K2 and K4 are held
-# to bit equality, K4's ids too); K9/K10 sum 304 float32 products in another
-# order;
+# K2/K4/K6/K7 sum subspaces in the plain version's order (K2, K4 and K7 are
+# held to bit equality, K4's ids too); K9/K10 sum 304 float32 products in
+# another order;
 # K3/K5/K8 sum exactly in integers and round the one rescale as the plain
 # version does; K8 also rounds its row-term add on its own (__fmul_rn, then
 # __fadd_rn); K1 sums bf16 products on the tensor cores in another order.
 TOL = {"adc_scan": 0.0, "adc_scan_binned": 0.0, "fused_exact_scan": 1e-3,
-       "budget_adc": 1e-5, "budget_adc_grouped": 1e-5, "budget_exact": 1e-4,
+       "budget_adc": 1e-5, "budget_adc_grouped": 0.0, "budget_exact": 1e-4,
        "budget_exact_grouped": 1e-4, "adc_scan_int8": 0.0,
        "adc_scan_binned_int8": 0.0, "budget_adc_grouped_int8": 0.0}
 BUDGET_BOOKS = ((12, 256, "uint8"), (30, 32, "uint8"), (15, 1024, "int16"))
@@ -138,26 +141,36 @@ def gpu_line() -> str:
     return out.stdout.strip()
 
 
-def ptxas_report(compiler_output: str, kernels: tuple[str, ...]
-                 ) -> list[tuple[str, int, int]]:
+def ptxas_report(compiler_output: str, kernels: tuple[str, ...],
+                 int16: tuple[str, ...] = ()) -> list[tuple[str, int, int]]:
     """Registers and spill bytes (stores + loads) that ``ptxas -v``
     reported for each instantiation of ``kernels`` with uint8 codes or no
-    code type (K10), e.g. ``("adc_scan_kernel<16>", 39, 0)``. Template
-    arguments: the queries per block (K10: its bf16 parts), then
-    ``packed``/``unpacked`` for K3's and K5's sums."""
+    code type (K9, K10, the pair layout), and of ``int16`` with int16
+    codes too, e.g. ``("adc_scan_kernel<16>", 39, 0)``. Template
+    arguments: the queries per block (K7: its fixed LUT row stride and its
+    rows a thread; K9: its 16-byte chunks a lane; K10: its bf16 parts),
+    then ``packed``/``unpacked`` for K3's, K5's and K8's sums, and
+    ``int16`` for int16 codes."""
     out, name, spill = [], None, -1
-    entry = re.compile(r"Compiling entry function '_Z\d+(\w+?_kernel)I(\w+?)Ev")
+    entry = re.compile(r"Compiling entry function '_Z(\d+)(\w+)'")
     for line in compiler_output.splitlines():
         m = entry.search(line)
         if m:
             name, spill = None, -1
-            args = m.group(2)
-            if m.group(1) in kernels and (args.endswith("h") or re.fullmatch(
-                    r"(Li\d+E)+", args)):
-                args = re.sub(r"Li(\d+)E", r"\1,", args.rstrip("h"))
+            n = int(m.group(1))
+            base, rest = m.group(2)[:n], m.group(2)[n:]
+            targs = re.match(r"I(\w+?)Ev", rest)
+            args = targs.group(1) if targs else ""
+            wide = base in int16 and args.endswith("s")
+            if base in kernels and (not args or args.endswith("h") or wide
+                                    or re.fullmatch(r"(Li\d+E)+", args)):
+                args = re.sub(r"Li(\d+)E", r"\1,", args[:-1] if args[-1:]
+                              in ("h", "s") else args)
+                args += "int16" if wide else ""
                 args = args.replace("Lb1E", "packed,").replace("Lb0E",
                                                                "unpacked,")
-                name = f"{m.group(1)}<{args.rstrip(',')}>"
+                args = args.rstrip(",")
+                name = f"{base}<{args}>" if args else base
             continue
         if name is None:
             continue
@@ -170,6 +183,47 @@ def ptxas_report(compiler_output: str, kernels: tuple[str, ...]
             out.append((name, int(rg.group(1)), spill))
             name = None
     return out
+
+
+def _traced(torch, fn, n: int = 1):
+    """A ``torch.profiler`` trace of ``n`` calls of ``fn``, after one call
+    to warm up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+def device_kernels(torch, fn) -> list[str]:
+    """The device kernels one call of ``fn`` launches, by name."""
+    names = [e.name for e in _traced(torch, fn).events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(names, "the profiler recorded no device kernel")
+    return [m.group(1) if (m := re.search(r"(\w+_kernel)\b", n)) else n
+            for n in names]
+
+
+def device_ms(torch, run, names: tuple[str, ...], n: int = 20) -> float:
+    """Device time per call of ``run`` (launches through a C entry point,
+    0 on success) of the kernels ``names``, over ``n`` traced calls: the
+    kernels' own time on the card, without the gaps that the host leaves
+    between launches of a few microseconds."""
+    def launch():
+        check(run() == 0, "a sweep launch failed")
+
+    pat = re.compile(r"(?<![\w])(" + "|".join(names) + r")(?![\w])")
+    ts = [e.self_device_time_total
+          for e in _traced(torch, launch, n).key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and pat.search(e.key)]
+    check(ts, f"the profiler recorded none of {names}")
+    return sum(ts) / 1e3 / n
 
 
 def recall_at(ids, gt, k: int) -> float:
@@ -643,16 +697,27 @@ def main() -> int:
             "adc_scan_kernel", "adc_scan_int8_kernel",
             "adc_scan_binned_kernel", "adc_scan_binned_int8_kernel",
             "budget_exact_grouped_kernel", "budget_adc_kernel",
-            "budget_adc_grouped_int8_kernel"))
-        log("[2] ptxas, uint8 codes: " + ", ".join(
+            "budget_adc_grouped_int8_kernel", "budget_adc_grouped_kernel",
+            "budget_exact_kernel", "budget_pair_count_kernel",
+            "budget_pair_place_kernel"), int16=("budget_adc_grouped_kernel",))
+        # (K7's int16 instantiation spilled at ptxas's own cap of 64
+        # registers until its launch bounds asked for two blocks an SM)
+        log("[2] ptxas, uint8 codes (K7 int16 too): " + ", ".join(
             f"{n} {r} regs {sp} spill bytes" for n, r, sp in regs))
         for want in ("adc_scan_binned_int8_kernel<",
                      "budget_exact_grouped_kernel<3>", "budget_adc_kernel<",
-                     "budget_adc_grouped_int8_kernel<packed>"):
+                     "budget_adc_grouped_int8_kernel<packed>",
+                     "budget_adc_grouped_kernel<32,1>",
+                     "budget_adc_grouped_kernel<32,4>",
+                     "budget_adc_grouped_kernel<32,1,int16>",
+                     "budget_adc_grouped_kernel<0,1,int16>",
+                     "budget_adc_grouped_kernel<0,4,int16>",
+                     "budget_exact_kernel<2>", "budget_pair_count_kernel",
+                     "budget_pair_place_kernel"):
             check(any(n.startswith(want) for n, _, _ in regs),
                   f"ptxas reported no {want}")
         check(all(sp == 0 for _, _, sp in regs),
-              "a walk kernel, K6, K8 or K10 spills registers")
+              "a walk kernel, K6-K10 or the pair layout spills registers")
 
     # ---------------------------------------------------------- 3a: edges
     boundary_checks(torch, kernels)
@@ -835,6 +900,30 @@ def main() -> int:
     torch.cuda.synchronize()
     log("[3] main-path shapes agree: " + ", ".join(
         f"{k} max_abs_err {v:.3g} (tol {TOL[k]})" for k, v in errs.items()))
+    # K7's pair layout at the 100k join's plan against the plain layout (the
+    # same tile per group, the same real slots, every pair once), and the
+    # device kernels one K7 and one K9 wrapper call launch
+    nt_j = jt100.codes_t.shape[1] // jt100.block_t
+    pairs_7, tog_7 = kernels.budget_pair_layout(tiles_j, nt_j, 32)
+    want_pairs, want_tog = kernels.budget_pair_layout_plain(tiles_j, nt_j, 32)
+    real = pairs_7 >= 0
+    check(torch.equal(tog_7, want_tog) and torch.equal(real, want_pairs >= 0)
+          and torch.equal(torch.sort(pairs_7[real]).values,
+                          torch.arange(tiles_j.numel(), dtype=torch.int32,
+                                       device=dev)),
+          "the pair layout breaks its contract at the 100k join's plan")
+    del want_pairs, want_tog, real
+    wrapper_kernels = {name: device_kernels(torch, shapes[name][0])
+                       for name in ("budget_adc_grouped", "budget_exact")}
+    check(sorted(wrapper_kernels["budget_adc_grouped"]) == [
+        "budget_adc_grouped_kernel", "budget_pair_count_kernel",
+        "budget_pair_place_kernel"],
+        f"a K7 wrapper call launched {wrapper_kernels['budget_adc_grouped']}"
+        f", not the pair layout's two kernels and K7 once each")
+    check(wrapper_kernels["budget_exact"] == ["budget_exact_kernel"],
+          f"a K9 wrapper call launched {wrapper_kernels['budget_exact']}")
+    log(f"[3] pair layout at the 100k join's plan holds its contract; device "
+        f"kernels per wrapper call: {wrapper_kernels}")
 
     # ------------------------------------------------------ 4: the paths
     _, gt = eng.exact.search(q1024, K)        # float32 exact ground truth
@@ -1110,6 +1199,24 @@ def main() -> int:
     log(f"[5] library for fused_exact_scan: bf16 torch.matmul "
         f"{tuple(qb.shape)} x {tuple(fused._tiled.t().shape)} "
         f"{library_ms['fused_exact_scan']:.3f} ms on {card}")
+    # K2's yardstick, never called by the port: one F.embedding_bag summing,
+    # for each row, the m rows j·k + code_j of the (m·k, B) LUT table (the
+    # table and the index made beforehand, not timed)
+    emb_w = luts.reshape(EVAL_Q, -1).t().contiguous()
+    emb_idx = codes_t.t().long() + torch.arange(
+        luts.shape[1], device=dev) * luts.shape[2]
+    emb = torch.nn.functional.embedding_bag(emb_idx, emb_w, mode="sum")
+    k2_library_err = float((emb.t() - kernels.adc_scan(luts, codes_t))
+                           .abs().max())
+    del emb
+    library_ms["adc_scan"] = p50(cuda_ms(
+        torch, lambda: torch.nn.functional.embedding_bag(emb_idx, emb_w,
+                                                         mode="sum"),
+        reps=3))
+    log(f"[5] library for adc_scan: F.embedding_bag {tuple(emb_idx.shape)} "
+        f"over {tuple(emb_w.shape)} {library_ms['adc_scan']:.3f} ms, max abs "
+        f"diff from K2 {k2_library_err:.3g} on {card}")
+    del emb_w, emb_idx
     # K10's yardstick, never called by the port: one bf16 torch.bmm of the
     # groups' (rows, D) x (D, block_t) products over the join's real groups,
     # queries and tiles gathered beforehand (not timed); no row norms
@@ -1127,6 +1234,70 @@ def main() -> int:
         f"{tuple(q_g.shape)} x {tuple(t_g.shape)} "
         f"{library_ms['budget_exact_grouped']:.3f} ms on {card}")
     del q_g, t_g
+    # K9's yardstick, never called by the port: one float32 torch.baddbmm,
+    # rownorm − 2·v·q over each (query, slot) pair's tile, at the single
+    # query (the kernels line) and at the join's method-1 batch (B = 512);
+    # rows widened to float32, gathered with their norms and the padded
+    # queries beforehand (not timed)
+    def k9_library(q, tl):
+        nt = jt100v.vecs.shape[0] // jt100v.block_t
+        ids = tl.reshape(-1).clamp(0, nt - 1).long()
+        v_g = jt100v.vecs.view(nt, jt100v.block_t, -1)[ids].float()
+        n_g = jt100v.rownorm.view(nt, jt100v.block_t, 1)[ids]
+        q_g = kernels._pad_f32(q, v_g.shape[2])[
+            torch.arange(q.shape[0], device=dev).repeat_interleave(
+                tl.shape[1])][:, :, None]
+        def call():
+            return torch.baddbmm(n_g, v_g, q_g, alpha=-2.0)
+        got = call().reshape(q.shape[0], -1)
+        want = kernels.budget_exact(q, jt100v.vecs, jt100v.rownorm, tl,
+                                    block_t=jt100v.block_t)
+        fin = torch.isfinite(want)
+        check(torch.equal(fin, torch.isfinite(got)),
+              "K9's library call is finite where K9 is not")
+        err = float((got - want)[fin].abs().max())
+        ms = p50(cuda_ms(torch, call, reps=3))
+        log(f"[5] library for budget_exact: float32 torch.baddbmm "
+            f"{tuple(v_g.shape)} x {tuple(q_g.shape)} (B={q.shape[0]} "
+            f"P={tl.shape[1]}) {ms:.4f} ms, max abs diff from K9 {err:.3g} "
+            f"on {card}")
+        return ms
+    library_ms["budget_exact"] = k9_library(q256[7:8], tiles_1)
+    k9_library_batch_ms = k9_library(qj, tiles_jv)
+    # K7's yardstick, never called by the port: one F.embedding_bag summing
+    # each pair's m LUT entries, LUT id · m·k + j·k + code_j, over the
+    # join's whole (B·P·block_t, m) index made beforehand (not timed); the
+    # row term is left out, as K10's yardstick leaves out the row norms
+    nt_a = jt100.codes_t.shape[1] // jt100.block_t
+    m_a, k_a = luts_join.shape[1], luts_join.shape[2]
+    flat_t = tiles_j.reshape(-1).clamp(0, nt_a - 1).long()
+    emb_idx = (jt100.codes_t.view(m_a, nt_a, jt100.block_t)[:, flat_t]
+               .permute(1, 2, 0).long()
+               + (torch.arange(m_a, device=dev) * k_a)
+               + (torch.arange(qj.shape[0], device=dev).repeat_interleave(
+                   tiles_j.shape[1]) * m_a * k_a)[:, None, None])
+    emb_idx = emb_idx.reshape(-1, m_a)
+    emb_w = luts_join.reshape(-1, 1)
+    emb = torch.nn.functional.embedding_bag(emb_idx, emb_w, mode="sum")
+    term_g = jt100.rowterm.view(nt_a, jt100.block_t)[flat_t].reshape(-1, 1)
+    k7_want = kernels.budget_adc_grouped(
+        luts_join, jt100.codes_t, jt100.rowterm, tiles_j,
+        block_t=jt100.block_t, rows=32).reshape(-1, 1)
+    fin = torch.isfinite(k7_want)
+    check(torch.equal(fin, torch.isfinite(emb + term_g)),
+          "K7's library call is finite where K7 is not")
+    k7_library_err = float(((emb + term_g) - k7_want)[fin].abs().max())
+    del emb, term_g, k7_want, fin
+    library_ms["budget_adc_grouped"] = p50(cuda_ms(
+        torch, lambda: torch.nn.functional.embedding_bag(emb_idx, emb_w,
+                                                         mode="sum"),
+        reps=3))
+    log(f"[5] library for budget_adc_grouped: F.embedding_bag "
+        f"{tuple(emb_idx.shape)} over {tuple(emb_w.shape)} (every pair, the "
+        f"inf tile's too; no row term) "
+        f"{library_ms['budget_adc_grouped']:.4f} ms, max abs diff from K7 "
+        f"after the row term {k7_library_err:.3g} on {card}")
+    del emb_w, emb_idx
     # The queries per block of K4, K2, K3 and K5, swept at the main shape
     # through the C entry points that take them (the wrappers let the
     # kernels choose: 16 for K4 and K2, 64 for K3 and K5)
@@ -1221,7 +1392,6 @@ def main() -> int:
                 sweep[f"K6 {shape} spb={spb} depth={depth}"] = per_launch(
                     lambda: k6_at(spb, depth))
         del k6_out
-    nt_j = jt100.codes_t.shape[1] // jt100.block_t
     qidx_8, tog_8, _ = kernels._grouped_layout(tiles_j.to(torch.int32), nt_j,
                                                32)
     k8_out = torch.empty(qidx_8.numel(), jt100.block_t, device=dev)
@@ -1236,10 +1406,73 @@ def main() -> int:
 
     for wmax in (0, 32, 16, 8):
         sweep[f"K8 wmax={wmax}"] = per_launch(lambda: k8_at(wmax))
+    # K7 through the entry point that takes its widest staging and its rows
+    # a thread (1, or 4 on the passes that keep half the block busy), over
+    # the pair layout built once; the layout alone through its own
+    k7_out = torch.empty(qj.shape[0], tiles_j.shape[1] * jt100.block_t,
+                         device=dev)
+
+    def k7_at(wmax, rpt):
+        return lib.pw2v_budget_adc_grouped_w(
+            luts_join.data_ptr(), jt100.codes_t.data_ptr(),
+            jt100.codes_t.element_size(), jt100.rowterm.data_ptr(),
+            pairs_7.data_ptr(), tog_7.data_ptr(), k7_out.data_ptr(),
+            *luts_join.shape, jt100.codes_t.shape[1], tiles_j.shape[1],
+            tog_7.shape[0], 32, jt100.block_t, wmax, rpt, stream)
+
+    k7_name = ("budget_adc_grouped_kernel",)
+    for wmax, rpt in ((0, 0), (16, 1), (8, 1), (4, 1), (2, 1), (1, 1),
+                      (16, 4), (8, 4)):
+        sweep[f"K7 wmax={wmax} rpt={rpt}"] = device_ms(
+            torch, lambda: k7_at(wmax, rpt), k7_name)
+    layout_buf = torch.empty(
+        tog_7.shape[0] * 33 + lib.pw2v_budget_pair_layout_scratch(
+            tiles_j.numel(), nt_j), dtype=torch.int32, device=dev)
+
+    def layout_at():
+        base = layout_buf.data_ptr()
+        return lib.pw2v_budget_pair_layout(
+            tiles_j.data_ptr(), base, base + 4 * tog_7.shape[0] * 32,
+            base + 4 * tog_7.shape[0] * 33, tiles_j.numel(), nt_j,
+            tog_7.shape[0], 32, stream)
+
+    layout_steps = {step: device_ms(torch, layout_at,
+                                    (f"budget_pair_{step}_kernel",))
+                    for step in ("count", "place")}
+    layout_ms = sum(layout_steps.values())
+    # K9 through the entry point that takes the blocks a slot is split over
+    # (0: its choice) at the single query's plan, and alone there and at
+    # the batch it is checked at (the 100k join's method-1 plan, B = 512)
+    q1 = q256[7:8]
+    k9_out1 = torch.empty(1, tiles_1.shape[1] * jt100v.block_t, device=dev)
+    k9_outb = torch.empty(qj.shape[0], tiles_jv.shape[1] * jt100v.block_t,
+                          device=dev)
+
+    def k9_at(q, tl, out, bps):
+        return lib.pw2v_budget_exact_bps(
+            q.data_ptr(), jt100v.vecs.data_ptr(), jt100v.rownorm.data_ptr(),
+            tl.data_ptr(), out.data_ptr(), q.shape[0], q.shape[1],
+            jt100v.vecs.shape[1], jt100v.vecs.shape[0], tl.shape[1],
+            jt100v.block_t, bps, stream)
+
+    k9_name = ("budget_exact_kernel",)
+    k9_ms = {"single": device_ms(
+        torch, lambda: k9_at(q1, tiles_1, k9_out1, 0), k9_name),
+        "batch": device_ms(
+            torch, lambda: k9_at(qj, tiles_jv, k9_outb, 0), k9_name)}
+    for bps in (1, 2, 4, 8, 16, 32):
+        sweep[f"K9 bps={bps}"] = device_ms(
+            torch, lambda: k9_at(q1, tiles_1, k9_out1, bps), k9_name)
     log(f"[5] sweep of K6 (slots per block, ring depth; 0 = its choice) and "
-        f"K8 (widest staging; 0 = its choice), per launch of 20: " + ", ".join(
-        f"{k} {t:.4f} ms" for k, t in sweep.items() if k[:3] in ("K6 ", "K8 "))
-        + f" on {card}")
+        f"K8 (widest staging; 0 = its choice), per launch of 20, and of K7 "
+        f"(widest staging, rows a thread) and K9 (blocks per slot at the single query), "
+        f"device time per launch: " + ", ".join(
+            f"{k} {t:.4f} ms" for k, t in sweep.items()
+            if k[:3] in ("K6 ", "K7 ", "K8 ", "K9 ")) + f" on {card}")
+    log(f"[5] kernel budget_exact, device time per launch: single query "
+        f"(B=1 P={tiles_1.shape[1]}) {k9_ms['single']:.4f} ms, join batch "
+        f"(B={qj.shape[0]} P={tiles_jv.shape[1]}) {k9_ms['batch']:.4f} ms "
+        f"on {card}")
     # the 100k join's groups: (query, tile) pairs, groups with a real slot,
     # and how many of them each staged width takes
     per_group = (qidx_8 < qj.shape[0]).sum(1)
@@ -1271,7 +1504,21 @@ def main() -> int:
             f"{k6_ms[shape]:.4f} ms per launch of 20, bound "
             f"{k6_bounds[shape][0]:.4f} ms ({k6_bounds[shape][1]}, "
             f"{k6_bounds[shape][2]}) on {card}")
-    del k8_out
+    # K7 beside K6 at the 100k join's plan; its bound with the pairs on the
+    # inf tile left out (as in the kernels line) and with every pair counted
+    all_ops = tiles_j.numel() * jt100.block_t * luts_join.shape[1]
+    k7_bound_all = bound(work["budget_adc_grouped"][0], all_ops, "fp32",
+                         4 * all_ops, shared_rate)
+    log(f"[5] kernel budget_adc_grouped at the 100k join: "
+        f"{sweep['K7 wmax=0 rpt=0']:.4f} ms device time per launch (K6 at the same "
+        f"plan {k6_ms['100k']:.4f} per launch of 20), its pair layout "
+        f"{layout_ms:.4f} ms (count {layout_steps['count']:.4f}, place "
+        f"{layout_steps['place']:.4f}); bound "
+        f"{bounds['budget_adc_grouped'][0]:.4f} ms "
+        f"({bounds['budget_adc_grouped'][2]}) without the inf-tile pairs, "
+        f"{k7_bound_all[0]:.4f} ms ({k7_bound_all[2]}) with every pair on "
+        f"{card}")
+    del k8_out, k7_out, layout_buf, k9_out1, k9_outb
     del luts, ql, sc, sweep_out, dense_out, k10_out
 
     def joined(method, targets, alpha, stats, lut_dtype="bf16"):
@@ -1384,6 +1631,11 @@ def main() -> int:
                     "insert": inserted, "path_launches": path_launches,
                     "sweep_ms": sweep, "budget_adc_join_ms": k6_ms,
                     "budget_adc_join_bounds": k6_bounds,
+                    "budget_adc_grouped_bound_all_pairs": k7_bound_all,
+                    "pair_layout_ms": layout_ms, "budget_exact_ms": k9_ms,
+                    "budget_exact_library_batch_ms": k9_library_batch_ms,
+                    "wrapper_kernels": wrapper_kernels,
+                    "adc_scan_library_err": k2_library_err,
                     "join_100k_groups": group_stats,
                     "inf_tile_share": inf_share, "gpu": card}))
     log(json.dumps(summary))

@@ -1,16 +1,13 @@
 // Shared pieces of the ADC kernels.
 //
-// - The query-major layout (K7 budget_adc_grouped.cu): the LUTs of up to
-//   ADC_MAX_QB queries, one thread per code row, one accumulator per staged
-//   query (adc_stage_luts, adc_row). K6 (budget_adc.cu) takes only the
-//   shared-memory limits from here.
 // - The query-minor walk (K2 adc_scan.cu, K3 adc_scan_int8.cu, K4
 //   adc_scan_binned.cu, K5 adc_scan_binned_int8.cu): adc_walk with a lookup
 //   policy (AdcF32, AdcU8) and an epilogue (AdcDense here, K4's and K5's
 //   bin mins in their own files).
 // - K8 (budget_adc_grouped_int8.cu) stages the int8 LUTs of a group's slots
 //   query-minor by wide loads (adc_u8_stage_ids) and sums them with AdcU8,
-//   one thread per code row.
+//   one thread per code row. K6 (budget_adc.cu) and K7
+//   (budget_adc_grouped.cu) take the shared-memory limits from here.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,54 +15,8 @@
 
 #include "cp_async.cuh"
 
-#define ADC_THREADS 256
-#define ADC_MAX_QB 8
-// Shared memory a block may take for staged LUTs. Two such blocks fit on
-// one SM (227 KB); one query's LUT alone may use up to ADC_SMEM_MAX.
-#define ADC_SMEM_TARGET (96 * 1024)
+// The shared memory a block may take (227 KB of the SM's 256 KB).
 #define ADC_SMEM_MAX (227 * 1024)
-
-// Queries staged per block for an (m, k) codebook: as many as fit in
-// ADC_SMEM_TARGET, at least one and at most ADC_MAX_QB. 0 when one query's
-// LUT does not fit in a block's shared memory at all.
-static inline int adc_query_block(int m, int k) {
-  const long long per_query = (long long)m * k * (long long)sizeof(float);
-  if (per_query > ADC_SMEM_MAX) return 0;
-  long long qb = ADC_SMEM_TARGET / per_query;
-  if (qb < 1) qb = 1;
-  if (qb > ADC_MAX_QB) qb = ADC_MAX_QB;
-  return (int)qb;
-}
-
-// Copy the (nq, m, k) LUT block of queries [b0, b0 + nq) into shared memory.
-__device__ __forceinline__ void adc_stage_luts(float* lut_s,
-                                               const float* __restrict__ luts,
-                                               int b0, int nq, int mk) {
-  const float* src = luts + (long long)b0 * mk;
-  for (int i = threadIdx.x; i < nq * mk; i += blockDim.x) lut_s[i] = src[i];
-  __syncthreads();
-}
-
-// ADC sums of code row n for the nq staged queries, summed over subspaces
-// j = 0 .. m-1 in order (the order of the plain version, so float32 results
-// agree bit for bit).
-template <typename CodeT>
-__device__ __forceinline__ void adc_row(float (&acc)[ADC_MAX_QB],
-                                        const float* lut_s,
-                                        const CodeT* __restrict__ codes,
-                                        long long n, long long N, int m,
-                                        int k, int nq) {
-  const int mk = m * k;
-#pragma unroll
-  for (int q = 0; q < ADC_MAX_QB; ++q) acc[q] = 0.f;
-  for (int j = 0; j < m; ++j) {
-    const int c = (int)codes[(long long)j * N + n];
-    const float* e = lut_s + j * k + c;
-#pragma unroll
-    for (int q = 0; q < ADC_MAX_QB; ++q)
-      if (q < nq) acc[q] += e[q * mk];
-  }
-}
 
 // Raise the block's dynamic shared-memory limit where a launch needs more
 // than the default 48 KB; without it the launch is refused and never runs.

@@ -45,8 +45,14 @@ SIGNATURES = {
     "pw2v_budget_adc_spb": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I64, _I, _I,
                             _I, _I, _P),
     "pw2v_budget_adc_grouped": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
-                                _I64, _I, _I, _I, _P),
-    "pw2v_budget_exact": (_P, _P, _P, _P, _P, _I, _I, _I64, _I, _I, _P),
+                                _I64, _I, _I, _I, _I, _P),
+    "pw2v_budget_adc_grouped_w": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+                                  _I64, _I, _I, _I, _I, _I, _I, _P),
+    "pw2v_budget_pair_layout": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "pw2v_budget_pair_layout_scratch": (_I, _I),
+    "pw2v_budget_exact": (_P, _P, _P, _P, _P, _I, _I, _I, _I64, _I, _I, _P),
+    "pw2v_budget_exact_bps": (_P, _P, _P, _P, _P, _I, _I, _I, _I64, _I, _I,
+                              _I, _P),
     "pw2v_budget_exact_grouped": (_P, _P, _P, _P, _P, _P, _I, _I, _I64, _I,
                                   _I, _I, _P),
     "pw2v_budget_exact_grouped_parts": (_P, _P, _P, _P, _P, _P, _I, _I,

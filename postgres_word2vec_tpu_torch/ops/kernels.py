@@ -18,12 +18,15 @@ kernels, written in CUDA C++ for ``sm_90a`` (sources in ``csrc/``, built by
   its code tiles through a ring of asynchronous copies
   (``csrc/budget_adc.cu``), the IVFADC probe and the sparse join;
 - K7 :func:`budget_adc_grouped` — the same contract with the (query,
-  tile) pairs grouped by tile (``csrc/budget_adc_grouped.cu``);
+  tile) pairs grouped by tile on the card (:func:`budget_pair_layout`,
+  ``csrc/budget_pair_layout.cu``), written straight into the result
+  (``csrc/budget_adc_grouped.cu``);
 - K8 :func:`budget_adc_grouped_int8` — K7 over int8 LUTs, staged only
   for a group's real slots and summed in packed 16-bit lanes
   (``csrc/budget_adc_grouped_int8.cu``);
-- K9 :func:`budget_exact` — budgeted tile-gather exact scores
-  (``csrc/budget_exact.cu``), the join's ``method=1``;
+- K9 :func:`budget_exact` — budgeted tile-gather exact scores, a small
+  probe's rows spread over many blocks (``csrc/budget_exact.cu``), the
+  join's ``method=1``;
 - K10 :func:`budget_exact_grouped` — its tile-grouped twin, on the
   tensor cores (``csrc/budget_exact_grouped.cu``).
 
@@ -147,14 +150,20 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def _launch(kernel: str, fn_name: str, *args) -> None:
+def _call(what: str, fn_name: str, *args) -> None:
+    """Launch through C entry point ``fn_name``; raise if it fails."""
     from postgres_word2vec_tpu_torch.ops import _build
 
     lib = _build.load()
     err = getattr(lib, fn_name)(*args)
     if err != 0:
-        raise RuntimeError(f"{kernel}: launch failed with CUDA error {err} "
+        raise RuntimeError(f"{what}: launch failed with CUDA error {err} "
                            f"({lib.pw2v_error_string(err).decode()})")
+
+
+def _launch(kernel: str, fn_name: str, *args) -> None:
+    """:func:`_call` for one of :data:`KERNELS`, counting the launch."""
+    _call(kernel, fn_name, *args)
     KERNELS[kernel].launches += 1
 
 
@@ -599,10 +608,12 @@ def fused_exact_top_k(queries: torch.Tensor, table: torch.Tensor,
 # all-padding "inf tile"): ``tiles`` is a (B, P) tensor of tile ids and the
 # result is (B, P·block_t) float32, slot p in columns [p·block_t,
 # (p+1)·block_t). +inf in ``rowterm`` / ``rownorm`` marks pad rows and the
-# inf tile and stays +inf. The grouped kernels sort the (query, slot) pairs
-# by tile first, so ``rows`` queries share one tile, and gather the result
-# back into the same contract; the grouping changes no value, so their plain
-# versions are the per-query ones.
+# inf tile and stays +inf. The grouped kernels group the (query, slot) pairs
+# by tile first, so ``rows`` queries share one tile: K7 by the pair layout,
+# and it writes each pair's row of the contract itself; K8 and K10 by the
+# sorted layout, and one row gather takes their result back into the
+# contract. The grouping changes no value, so their plain versions are the
+# per-query ones.
 
 #: Queries per group of the grouped kernels (the JAX package's on-chip
 #: sweep on its TPU, carried over; re-fitting it on the H100 is open).
@@ -663,6 +674,59 @@ def _reassemble(out_rows: torch.Tensor, row: torch.Tensor,
     contract."""
     B, P = tiles.shape
     return out_rows.index_select(0, row).reshape(B, P * out_rows.shape[1])
+
+
+def budget_pair_layout_plain(tiles: torch.Tensor, n_tiles: int, rows: int
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`budget_pair_layout`: tile ids outside
+    ``[0, n_tiles)`` become one bucket (tile ``n_tiles``), then
+    :func:`_group_probe_layout`'s stable sort, and each grouped slot takes
+    the flat pair it holds, ``pairs[row] = arange(B·P)``."""
+    B, P = tiles.shape
+    groups = -(-B * P // rows) + n_tiles
+    t = tiles.to(torch.int32)
+    t = torch.where((t >= 0) & (t < n_tiles), t, n_tiles)
+    _, tog, row = _group_probe_layout(t, B, P, groups, n_tiles - 1, rows)
+    pairs = torch.full((groups * rows,), -1, dtype=torch.int32,
+                       device=tiles.device)
+    pairs[row] = torch.arange(B * P, dtype=torch.int32, device=tiles.device)
+    return pairs.reshape(groups, rows), tog
+
+
+def budget_pair_layout(tiles: torch.Tensor, n_tiles: int, rows: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Group a (B, P) plan's flat query-major pairs ``b·P + p`` by tile,
+    ``rows`` to a group → ``(pairs (G, rows) int32, tog (G,) int32)``, G =
+    ⌈B·P/rows⌉ + n_tiles: group g holds pairs ``pairs[g]`` (−1 on an unused
+    slot, the real ones first) that all probe tile ``tog[g]``. Ids outside
+    the table share the groups of tile ``n_tiles``; groups past the last
+    real one are padding (tile ``n_tiles − 1``, no pair).
+
+    On the card two launches of ``csrc/budget_pair_layout.cu`` build it
+    (K7's glue, not one of :data:`KERNELS`): pairs are counted by tile and
+    placed by atomics, so which pairs share a group, and in which order,
+    may differ from the plain version's stable sort and from run to run;
+    every pair lands in exactly one slot of a group of its tile."""
+    if not _on_cuda(tiles):
+        return budget_pair_layout_plain(tiles, n_tiles, rows)
+    from postgres_word2vec_tpu_torch.ops import _build
+
+    B, P = tiles.shape
+    groups = -(-B * P // rows) + n_tiles
+    _require(tiles.dtype == torch.int32 and tiles.is_contiguous(),
+             "tiles must be contiguous int32")
+    scratch = _build.load().pw2v_budget_pair_layout_scratch(B * P, n_tiles)
+    _require(rows >= 1 and scratch >= 0
+             and groups * (rows + 1) + scratch < 2**31,
+             f"a layout of {groups} groups of {rows} exceeds int32")
+    buf = torch.empty(groups * (rows + 1) + scratch, dtype=torch.int32,
+                      device=tiles.device)
+    base = buf.data_ptr()
+    _call("budget_pair_layout", "pw2v_budget_pair_layout", tiles.data_ptr(),
+          base, base + 4 * groups * rows, base + 4 * groups * (rows + 1),
+          B * P, n_tiles, groups, rows, _stream())
+    return (buf[:groups * rows].view(groups, rows),
+            buf[groups * rows:groups * (rows + 1)])
 
 
 def _check_budget(table_rows: int, block_t: int, tiles: torch.Tensor,
@@ -730,10 +794,11 @@ def budget_adc_grouped(luts: torch.Tensor, codes_t: torch.Tensor,
                        block_t: int, rows: int = 8,
                        lut_dtype: str = "bf16") -> torch.Tensor:
     """Tile-grouped budgeted ADC (K7), :func:`budget_adc`'s contract: the
-    (query, slot) pairs are sorted by tile (:func:`_group_probe_layout`,
-    torch glue), ``rows`` queries per block share one code tile, and one
-    row gather reassembles ``(B, P·block_t)``. ``lut_dtype="int8"``
-    quantizes the LUTs per query and runs K8. CPU tensors take
+    (query, slot) pairs are grouped by tile on the card
+    (:func:`budget_pair_layout`), ``rows`` pairs per block share one code
+    tile, and each writes its own row of the ``(B, P·block_t)`` result;
+    equal to the plain version bit for bit. ``lut_dtype="int8"`` quantizes
+    the LUTs per query and runs K8. CPU tensors take
     :func:`budget_adc_plain`."""
     _check_lut_dtype(lut_dtype)
     if lut_dtype == "int8":
@@ -748,15 +813,14 @@ def budget_adc_grouped(luts: torch.Tensor, codes_t: torch.Tensor,
     na = codes_t.shape[1]
     t = _check_budget(na, block_t, tiles, B, rowterm)
     _require(rows >= 1, f"rows must be ≥ 1, got {rows}")
-    qidx, tog, row = _grouped_layout(t, na // block_t, rows)
-    groups = tog.shape[0]
-    out = torch.empty(groups * rows, block_t, dtype=torch.float32,
-                      device=luts.device)
+    P = t.shape[1]
+    pairs, tog = budget_pair_layout(t, na // block_t, rows)
+    out = torch.empty(B, P * block_t, dtype=torch.float32, device=luts.device)
     _launch("budget_adc_grouped", "pw2v_budget_adc_grouped", luts.data_ptr(),
             codes_t.data_ptr(), codes_t.element_size(), rowterm.data_ptr(),
-            qidx.data_ptr(), tog.data_ptr(), out.data_ptr(), B, m, k, na,
-            groups, rows, block_t, _stream())
-    return _reassemble(out, row, t)
+            pairs.data_ptr(), tog.data_ptr(), out.data_ptr(), B, m, k, na, P,
+            tog.shape[0], rows, block_t, _stream())
+    return out
 
 
 # K8 -------------------------------------------------------------------------
@@ -862,23 +926,26 @@ def budget_exact(queries: torch.Tensor, vecs: torch.Tensor,
     """Budgeted tile-gather exact scores → ``(B, P·block_t)`` shifted
     scores ``‖v‖² − 2·q·v`` (K9); add ‖q‖² back for squared L2.
 
-    ``queries`` (B, d) float, kept float32; ``vecs`` (NA, D) bf16
-    row-major cell-aligned rows, D a multiple of 8 ≥ d (pad rows zero);
-    ``rownorm`` (NA,) float32 ‖v‖², +inf on padding."""
+    ``queries`` (B, d) float, kept float32 and read by the kernel as they
+    are (no padding to D); ``vecs`` (NA, D) bf16 row-major cell-aligned
+    rows, D a multiple of 8 ≥ d (pad rows zero); ``rownorm`` (NA,) float32
+    ‖v‖², +inf on padding. On the card slots on the table's last tile come
+    out +inf without a read once the kernel has seen that its row norms
+    are all +inf."""
     if not _on_cuda(queries, vecs, rownorm, tiles):
         return budget_exact_plain(queries, vecs, rownorm, tiles,
                                   block_t=block_t)
     _check_exact_inputs(queries, vecs)
-    B = queries.shape[0]
+    B, d = queries.shape
     na, D = vecs.shape
     t = _check_budget(na, block_t, tiles, B, rownorm)
     P = t.shape[1]
-    q = _pad_f32(queries, D)
+    q = queries.float().contiguous()   # as it is for float32 queries
     out = torch.empty(B, P * block_t, dtype=torch.float32,
                       device=queries.device)
     _launch("budget_exact", "pw2v_budget_exact", q.data_ptr(),
             vecs.data_ptr(), rownorm.data_ptr(), t.data_ptr(),
-            out.data_ptr(), B, D, na, P, block_t, _stream())
+            out.data_ptr(), B, d, D, na, P, block_t, _stream())
     return out
 
 

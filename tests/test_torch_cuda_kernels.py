@@ -15,13 +15,14 @@ Tolerances:
 - K1 fused exact: the binned contract with atol 1e-3 — bf16 inputs,
   float32 sums over 304 terms taken on the tensor cores in another order
   than the plain matmul's; exact ties take the smallest id;
-- K6 / K7 budget ADC: atol 1e-5 on the finite entries and the same +inf
-  entries (subspaces summed in the plain version's order, then the row
-  term: they agree bit for bit in practice, and K6's ring, slot-count and
-  unaligned-route cases are held to 0);
+- K6 / K7 budget ADC: the same +inf entries, and the finite ones within
+  atol 1e-5 for K6's boundary grid and equal everywhere else (subspaces
+  summed in the plain version's order, then the row term); K7's pair
+  layout is held to the plain layout's invariants;
 - K9 / K10 budget exact: atol 1e-4 on the finite shifted scores and the
   same +inf entries (float32 queries, bf16 rows widened exactly, float32
-  sums over 304 products in another order than the plain matmul's; K10
+  sums over up to 1024 products in another order than the plain matmul's;
+  K9 reads queries narrower than the table unpadded; K10
   splits each query value into three bf16 parts, which hold it exactly,
   for the tensor cores, so queries of norm 10 hold 1e-4 too);
 - K3 / K5 / K8 over int8 LUTs: exact integer sums (K3's and K5's packed
@@ -471,13 +472,204 @@ def test_budget_adc_grouped_matches_plain(block_t, B, m, k, dtype):
                                      block_t=block_t, rows=32)
     assert kernels.KERNELS["budget_adc_grouped"].launches == before + 1
     _assert_budget_close(got, kernels.budget_adc_plain(
-        luts, codes_t, rowterm, tiles, block_t=block_t), 1e-5)
+        luts, codes_t, rowterm, tiles, block_t=block_t), 0.0)
 
 
-def _exact_case(seed, B, block_t, d=300, nt=6, P=5, q_norm=1.0):
+# K7's pair layout, staged widths, uniform plans and routes
+
+def _assert_pair_layout(pairs, tog, tiles, n_tiles, rows):
+    """The pair layout's contract: ⌈B·P/rows⌉ + n_tiles groups; every pair
+    in exactly one slot; a group's real slots first; each slot's group on
+    its pair's tile (ids outside the table: tile n_tiles); groups without
+    a pair on the inf tile."""
+    B, P = tiles.shape
+    groups = -(-B * P // rows) + n_tiles
+    assert pairs.shape == (groups, rows) and tog.shape == (groups,)
+    real = pairs >= 0
+    assert torch.equal(torch.sort(pairs[real]).values,
+                       torch.arange(B * P, dtype=torch.int32,
+                                    device=pairs.device))
+    assert bool((real[:, 1:] <= real[:, :-1]).all())
+    flat = tiles.reshape(-1).long()
+    bucket = torch.where((flat >= 0) & (flat < n_tiles), flat, n_tiles)
+    g = torch.arange(groups, device=pairs.device)[:, None].expand_as(pairs)
+    assert torch.equal(tog[g[real]].long(), bucket[pairs[real].long()])
+    assert bool((tog[~real.any(1)] == n_tiles - 1).all())
+
+
+@pytest.mark.parametrize("rows", (1, 8, 32, 40))
+@pytest.mark.parametrize("plan", ("mixed", "inf_tile", "bad_ids", "one_tile"))
+def test_budget_pair_layout_holds_its_invariants(rows, plan):
+    """The layout kernel against the plain layout's invariants, and the
+    same tile per group and the same real slots as the plain version
+    (buckets in tile order, each filled from its first slot); only the
+    order of pairs inside a bucket may differ."""
+    _, codes_t, _, tiles = _budget_case(rows, 257, 30, 32, torch.uint8, 256,
+                                        P=13)
+    n_tiles = codes_t.shape[1] // 256
+    tiles[:, -2:] = n_tiles - 1
+    if plan == "inf_tile":
+        tiles[:] = n_tiles - 1
+    elif plan == "bad_ids":
+        tiles[::3] = -1
+        tiles[1::3] = n_tiles + 5
+    elif plan == "one_tile":
+        tiles[:] = 2
+    pairs, tog = kernels.budget_pair_layout(tiles, n_tiles, rows)
+    torch.cuda.synchronize()
+    _assert_pair_layout(pairs, tog, tiles, n_tiles, rows)
+    want_pairs, want_tog = kernels.budget_pair_layout_plain(tiles, n_tiles,
+                                                            rows)
+    assert torch.equal(tog, want_tog)
+    assert torch.equal(pairs >= 0, want_pairs >= 0)
+
+
+def test_budget_pair_layout_takes_scratch_past_shared_memory():
+    """A table of more tiles than the kernel's counts in shared memory
+    (40,960): the counts go to scratch in device memory."""
+    n_tiles = 50_000
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tiles = torch.randint(-2, n_tiles + 2, (300, 20), generator=g,
+                          device="cuda", dtype=torch.int32)
+    pairs, tog = kernels.budget_pair_layout(tiles, n_tiles, 8)
+    torch.cuda.synchronize()
+    _assert_pair_layout(pairs, tog, tiles, n_tiles, 8)
+
+
+def _k7_at_width(luts, codes_t, rowterm, tiles, block_t, rows, wmax,
+                 out=None, rpt=0):
+    """K7 through the entry point that takes the staged width and the rows
+    a thread, into a NaN-poisoned (B, P·block_t) output → (CUDA error
+    code, output)."""
+    from postgres_word2vec_tpu_torch.ops import _build
+
+    B, m, k = luts.shape
+    na, P = codes_t.shape[1], tiles.shape[1]
+    pairs, tog = kernels.budget_pair_layout(tiles, na // block_t, rows)
+    if out is None:
+        out = torch.full((B, P * block_t), float("nan"), device="cuda")
+    err = _build.load().pw2v_budget_adc_grouped_w(
+        luts.data_ptr(), codes_t.data_ptr(), codes_t.element_size(),
+        rowterm.data_ptr(), pairs.data_ptr(), tog.data_ptr(), out.data_ptr(),
+        B, m, k, na, P, tog.shape[0], rows, block_t, wmax, rpt,
+        torch.cuda.current_stream().cuda_stream)
+    return err, out
+
+
+K7_GROUP_SIZES = (1, 4, 5, 8, 9, 16, 17, 32)
+
+
+@pytest.mark.parametrize("rpt", (1, 4))
+@pytest.mark.parametrize("wmax", (0, 1, 2, 4, 8, 16, 32))
+@pytest.mark.parametrize("m,k,dtype", ((30, 32, torch.uint8),
+                                       (20, 32, torch.int16),
+                                       (12, 256, torch.uint8),
+                                       (15, 1024, torch.int16)))
+def test_budget_adc_grouped_every_group_size_and_width(wmax, m, k, dtype,
+                                                       rpt):
+    """Groups of 1, 4, 5, 8, 9, 16, 17 and 32 real pairs at every staged
+    width and one or four rows a thread, with fixed strides (k = 32) and
+    strides at run time: each pass stages the least width that holds what
+    is left of its group (or ``wmax`` slots); a width over 16, or whose LUTs
+    do not fit beside the tile, is refused. Every pair's row is written (no
+    NaN left)."""
+    luts, codes_t, rowterm, tiles = _sized_groups_case(
+        wmax + m, m, k, dtype, 256, sizes=K7_GROUP_SIZES)
+    err, got = _k7_at_width(luts, codes_t, rowterm, tiles, 256, 32, wmax,
+                            rpt=rpt)
+    qs = 1024 if k == 32 and m <= 32 else -(-m * k // 32) * 32
+    lut_bytes = wmax * qs * 4
+    if wmax > 16 or lut_bytes + m * 256 * codes_t.element_size() > 226 * 1024:
+        assert err != 0
+        return
+    assert err == 0
+    _assert_budget_close(got, kernels.budget_adc_plain(
+        luts, codes_t, rowterm, tiles, block_t=256), 0.0)
+
+
+@pytest.mark.parametrize("plan", ("inf_tile", "bad_ids", "one_tile"))
+@pytest.mark.parametrize("rows", (8, 32))
+def test_budget_adc_grouped_uniform_plans(plan, rows):
+    """A plan of nothing but the inf tile, one of nothing but ids outside
+    the table (+inf everywhere, nothing read), and one whose pairs all
+    name the same tile (full groups, several passes each)."""
+    luts, codes_t, rowterm, tiles = _budget_case(22, 29, 30, 32, torch.uint8,
+                                                 256, P=11)
+    nt = codes_t.shape[1] // 256 - 1
+    tiles[:] = {"inf_tile": nt, "bad_ids": -3, "one_tile": 2}[plan]
+    if plan == "bad_ids":
+        tiles[::2] = nt + 1
+    err, got = _k7_at_width(luts, codes_t, rowterm, tiles, 256, rows, 0)
+    assert err == 0
+    torch.cuda.synchronize()
+    if plan == "one_tile":
+        _assert_budget_close(got, kernels.budget_adc_plain(
+            luts, codes_t, rowterm, tiles, block_t=256), 0.0)
+        assert torch.isfinite(got).any()
+    else:
+        assert torch.isinf(got).all() and (got > 0).all()
+
+
+@pytest.mark.parametrize("rpt", (1, 4))
+@pytest.mark.parametrize("route", ("block_t", "codes", "luts", "out"))
+@pytest.mark.parametrize("m,k,dtype", ((12, 256, torch.uint8),
+                                       (15, 1024, torch.int16),
+                                       (5, 6, torch.uint8),
+                                       (3, 12, torch.uint8)))
+def test_budget_adc_grouped_takes_unaligned_inputs(route, m, k, dtype, rpt):
+    """K7's routes without wide loads or bulk copies: code tiles copied by
+    plain loads (block_t = 100; a table one element into its buffer), LUTs
+    staged a float at a time (a LUT tensor one float into its buffer; m·k
+    = 30, not a multiple of 4), +inf written a float at a time (an output
+    4 bytes off a 16-byte boundary, where four rows a thread also give way
+    to one)."""
+    block_t = 100 if route == "block_t" else 128
+    luts, codes_t, rowterm, tiles = _budget_case(m + k + block_t, 45, m, k,
+                                                 dtype, block_t)
+    tiles[:, -1] = codes_t.shape[1] // block_t - 1
+    if route == "codes":
+        buf = torch.zeros(codes_t.numel() + 1, dtype=dtype, device="cuda")
+        buf[1:] = codes_t.reshape(-1)
+        codes_t = buf[1:].view(m, -1)
+        assert codes_t.data_ptr() % 16 != 0
+    if route == "luts":
+        buf = torch.zeros(luts.numel() + 1, device="cuda")
+        buf[1:] = luts.reshape(-1)
+        luts = buf[1:].view(luts.shape)
+        assert luts.data_ptr() % 16 != 0 and luts.is_contiguous()
+    out = None
+    if route == "out":
+        buf = torch.full((tiles.numel() * block_t + 1,), float("nan"),
+                         device="cuda")
+        out = buf[1:].view(tiles.shape[0], -1)
+        assert out.data_ptr() % 16 != 0
+    err, got = _k7_at_width(luts, codes_t, rowterm, tiles, block_t, 32, 0,
+                            out, rpt)
+    assert err == 0
+    _assert_budget_close(got, kernels.budget_adc_plain(
+        luts, codes_t, rowterm, tiles, block_t=block_t), 0.0)
+
+
+@pytest.mark.parametrize("last", ("all_inf", "one_finite_row"))
+def test_budget_adc_grouped_skips_the_last_tile_only_if_all_inf(last):
+    """K7 writes +inf for pairs on the table's last tile without reading
+    its codes only after seeing that all its row terms are +inf."""
+    luts, codes_t, rowterm, tiles = _budget_case(43, 47, 30, 32, torch.uint8,
+                                                 256, P=7)
+    nt = codes_t.shape[1] // 256 - 1
+    tiles[:, 4:] = nt
+    if last == "one_finite_row":
+        rowterm[nt * 256 + 77] = 0.25
+    got = kernels.budget_adc_grouped(luts, codes_t, rowterm, tiles,
+                                     block_t=256, rows=32)
+    _assert_budget_close(got, kernels.budget_adc_plain(
+        luts, codes_t, rowterm, tiles, block_t=256), 0.0)
+
+
+def _exact_case(seed, B, block_t, d=300, nt=6, P=5, q_norm=1.0, D=None):
     """Unit rows of width d in a (NA, D) bf16 table, D = d rounded up to a
-    multiple of 8, pad rows in tile 1 and the inf tile; queries are rows of
-    tile 0 scaled to norm ``q_norm``."""
+    multiple of 8 unless given, pad rows in tile 1 and the inf tile;
+    queries are rows of tile 0 scaled to norm ``q_norm``."""
     rng = np.random.default_rng(seed)
     na = (nt + 1) * block_t
     v = rng.normal(size=(na, d)).astype(np.float32)
@@ -485,7 +677,7 @@ def _exact_case(seed, B, block_t, d=300, nt=6, P=5, q_norm=1.0):
     v[block_t + block_t // 2:2 * block_t] = 0.0       # pad rows
     v[nt * block_t:] = 0.0                             # the inf tile
     vt = torch.as_tensor(v, device="cuda")
-    vecs = torch.zeros(na, -(-d // 8) * 8, dtype=torch.bfloat16,
+    vecs = torch.zeros(na, D or -(-d // 8) * 8, dtype=torch.bfloat16,
                        device="cuda")
     vecs[:, :d] = vt.to(torch.bfloat16)
     rownorm = torch.sum(vt * vt, dim=1)
@@ -506,6 +698,64 @@ def test_budget_exact_matches_plain(block_t, B):
     assert kernels.KERNELS["budget_exact"].launches == before + 1
     want = kernels.budget_exact_plain(q, vecs, rownorm, tiles,
                                       block_t=block_t)
+    _assert_budget_close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("P", (1, 5, 33))
+@pytest.mark.parametrize("d,D", ((5, 8), (20, 24), (300, 304), (1000, 1024)))
+def test_budget_exact_single_query_matches_plain(P, d, D):
+    """K9 at B = 1, the single query's probe, whose slots' rows spread over
+    several blocks: row widths D = 8, 24, 304 and 1024 (one, two and four
+    16-byte chunks a lane) with queries of d < D values read unpadded, a
+    plan with the inf tile and an id outside the table."""
+    q, vecs, rownorm, tiles = _exact_case(P + d, 1, 256, d=d, D=D, P=P)
+    nt = vecs.shape[0] // 256 - 1
+    tiles[0, -1] = nt
+    if P > 1:
+        tiles[0, 0] = -3
+    before = kernels.KERNELS["budget_exact"].launches
+    got = kernels.budget_exact(q, vecs, rownorm, tiles, block_t=256)
+    assert kernels.KERNELS["budget_exact"].launches == before + 1
+    want = kernels.budget_exact_plain(q, vecs, rownorm, tiles.clamp(min=0),
+                                      block_t=256)
+    if P > 1:
+        want[0, :256] = float("inf")
+    _assert_budget_close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("bps", (0, 1, 2, 3, 8, 32, 256))
+@pytest.mark.parametrize("B", (1, 3, 40))
+def test_budget_exact_every_blocks_per_slot_matches_plain(bps, B):
+    """K9 through the entry point that takes the blocks a slot is split
+    over (0: the kernel's choice; 3 leaves a ragged last block, 256 a
+    block a row), into a NaN-poisoned output that comes back whole."""
+    from postgres_word2vec_tpu_torch.ops import _build
+
+    q, vecs, rownorm, tiles = _exact_case(bps + B, B, 256, P=9)
+    out = torch.full((B, 9 * 256), float("nan"), device="cuda")
+    err = _build.load().pw2v_budget_exact_bps(
+        q.data_ptr(), vecs.data_ptr(), rownorm.data_ptr(), tiles.data_ptr(),
+        out.data_ptr(), B, q.shape[1], vecs.shape[1], vecs.shape[0], 9, 256,
+        bps, torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    _assert_budget_close(out, kernels.budget_exact_plain(
+        q, vecs, rownorm, tiles, block_t=256), 1e-4)
+
+
+@pytest.mark.parametrize("last", ("all_inf", "one_finite_row"))
+@pytest.mark.parametrize("B", (1, 40))
+def test_budget_exact_skips_the_last_tile_only_if_all_inf(last, B):
+    """K9 writes +inf for slots on the table's last tile without reading
+    its vectors only after seeing that all its row norms are +inf."""
+    q, vecs, rownorm, tiles = _exact_case(B + 7, B, 256, P=7)
+    nt = vecs.shape[0] // 256 - 1
+    tiles[:, 4:] = nt
+    if last == "one_finite_row":
+        rownorm[nt * 256 + 77] = 0.25
+    got = kernels.budget_exact(q, vecs, rownorm, tiles, block_t=256)
+    want = kernels.budget_exact_plain(q, vecs, rownorm, tiles, block_t=256)
+    assert bool(torch.isfinite(want[:, 4 * 256:]).any()) == (
+        last == "one_finite_row")
     _assert_budget_close(got, want, 1e-4)
 
 

@@ -252,6 +252,60 @@ def test_grouped_layout_reassembles_the_contract(rng, rows):
     assert torch.equal(kernels._reassemble(grouped, row, t), want)
 
 
+@pytest.mark.parametrize("rows", [8, 32])
+def test_pair_layout_plain_matches_jax(rng, rows):
+    """K7's pair layout, plain version, against the JAX
+    ``_group_probe_layout`` on a plan whose queries end in inf-tile
+    padding: the same tile per group and the same real slots; every real
+    slot holds a pair of the group's query (``pairs // P == qidx``) whose
+    grouped row is that slot (``row[pairs] == slot``); every pair appears
+    exactly once."""
+    B, P, nt = 40, 6, 4                  # tiles 0..nt-1 and the inf tile nt
+    tiles = rng.integers(0, nt, size=(B, P)).astype(np.int32)
+    cut = rng.integers(1, P + 1, size=B)
+    tiles[np.arange(P)[None, :] >= cut[:, None]] = nt
+    groups = -(-B * P // rows) + nt + 1
+    pairs, tog = kernels.budget_pair_layout_plain(to_torch(tiles), nt + 1,
+                                                  rows)
+    qidx, jtog, row = (np.asarray(a) for a in pk._group_probe_layout(
+        to_jax(tiles), B, P, groups, nt, rows))
+    pairs = np_(pairs)
+    assert pairs.shape == (groups, rows)
+    np.testing.assert_array_equal(np_(tog), jtog)
+    real = pairs >= 0
+    np.testing.assert_array_equal(real, qidx < B)
+    np.testing.assert_array_equal(pairs[real] // P, qidx[real])
+    slots = np.arange(groups * rows).reshape(groups, rows)
+    np.testing.assert_array_equal(row[pairs[real]], slots[real])
+    np.testing.assert_array_equal(np.sort(pairs[real]), np.arange(B * P))
+
+
+@pytest.mark.parametrize("rows", [1, 8, 32])
+def test_pair_layout_scatter_rebuilds_the_contract(rng, rows):
+    """K7's write-through, on the CPU: each real slot's row (the plain sums
+    of its pair's query over its group's tile, +inf for the bucket of ids
+    outside the table) written to row ``pairs`` of the output rebuilds
+    ``budget_adc_plain``'s (B, P·block_t) contract."""
+    _, luts, codes, rowterm, tiles, bt = _budget_case(rng, B=40, P=6)
+    n_tiles = codes.shape[0] // bt
+    tiles[5, 1], tiles[9, 0] = -2, 99                 # ids outside the table
+    B, P = tiles.shape
+    lt, ct = to_torch(luts), to_torch(codes.T).contiguous()
+    rt = to_torch(rowterm)
+    inside = np.where((tiles >= 0) & (tiles < n_tiles), tiles, n_tiles - 1)
+    want = kernels.budget_adc_plain(lt, ct, rt, to_torch(inside), block_t=bt)
+    pairs, tog = kernels.budget_pair_layout_plain(to_torch(tiles), n_tiles,
+                                                  rows)
+    real = pairs >= 0
+    g = torch.arange(pairs.shape[0])[:, None].expand_as(pairs)[real]
+    p = pairs[real].long()
+    t = torch.clamp_max(tog[g], n_tiles - 1)[:, None]  # bad ids: the inf tile
+    per_pair = kernels.budget_adc_plain(lt[p // P], ct, rt, t, block_t=bt)
+    out = torch.full((B * P, bt), float("nan"))
+    out[p] = per_pair
+    assert torch.equal(out.reshape(B, P * bt), want)
+
+
 def test_plain_budget_adc_matches_pallas_interpret(rng):
     _, luts, codes, rowterm, tiles, bt = _budget_case(rng)
     args = (to_torch(luts), to_torch(codes.T).contiguous(),
