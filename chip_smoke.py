@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-Drives the port's three ported paths at the bench scale (N = 3,072,000 ×
+Drives the port's paths at the bench scale (N = 3,072,000 ×
 d = 300, bench.py's data size and BUILD settings) through the entry points
 a user calls, and holds every hand-written kernel to its plain version:
 
@@ -28,9 +28,11 @@ a user calls, and holds every hand-written kernel to its plain version:
    by side, and each kernel alone against its plain version, with its
    bound at those shapes (the largest of HBM bytes, the walk kernels'
    and the ADC budget kernels' shared-memory lookup bytes, and peak
-   operations) and, for K1, K2 and K10, one PyTorch call of the same
-   function as a yardstick (a bf16 ``torch.matmul``; ``F.embedding_bag``
-   over the LUTs; a bf16 ``torch.bmm`` over pre-gathered tiles); a sweep
+   operations) and, where one PyTorch call computes the same function,
+   that call as a yardstick (K1 a bf16 ``torch.matmul``; K2 and K3
+   ``F.embedding_bag`` over the LUTs; K6, K7 and K8 ``F.embedding_bag``
+   over a plan's flat index; K9 a float32 ``torch.baddbmm``; K10 a bf16
+   ``torch.bmm`` over pre-gathered tiles); a sweep
    at the main shape of the queries per block (K4 at 16 and 8, K2 at 16
    and 8, K3 and K5 at 64 and 32), of K10's bf16 parts per query value at
    the join's shape (3, the kernel's; 2 and 1), of K6's slots per block
@@ -44,7 +46,23 @@ a user calls, and holds every hand-written kernel to its plain version:
    calls per path, written to OUT.json — host wall and device time per
    call, the device's busy share, the top device kernels, and each
    hand-written kernel's device time per launch without its torch glue;
-7. last, so that the numbers above are unchanged, slice 3's online
+7. slice 9, the rest of the engine on the same engine, each call with
+   the launch counts set to 0 before it and read after it, and timed:
+   in-set kNN over the first 100,000 rows (``knn_in_exact``,
+   ``knn_in_pq``, ``knn_in_pq_batch`` on 5,000 queries with its recall@5,
+   ``knn_in_matrix``; K2 held bit-equal to its plain version on the
+   gathered (m, 100000) table), 64 seeded analogies through all ten
+   methods (the exact ones equal to a float32 argmax computed here, the
+   accelerated ones' agreement with exact 3CosAdd above a floor), both
+   groupings over 10,000 tokens and 100 groups, the three clusterings over
+   2,000 tokens with k = 20, ``tokenize`` / ``tokenize_raw`` against the
+   direct mean, ``autotune`` and ``autotune_join`` with their reports,
+   ``warmup``, a ``vecs_pregathered`` handle over the whole store (its
+   peak memory growth below a gathered copy's, its method-2 join equal to
+   the store-table handle's), the unprepared join's tile cache (the second
+   call reports no data retrieval), and a FREDDY dump exported and
+   imported back on the card for a 20,000-row engine;
+8. last, so that the numbers above are unchanged, slice 3's online
    insert: ``insert_batch`` of 10,240 new two-word terms in 4 batches of
    2,560 (the fourth crosses the IVFADC tail's 8,192 rows, so the tail is
    spliced into the lists on the card), a standalone int8 exact index
@@ -111,6 +129,18 @@ JOIN_BOOKS = ((30, 32, "uint8"), (15, 1024, "int16"))
 # K3/K5's boundary codebooks: slice 1's, the budget ones and 4-bit 12×16
 I8_BOOKS = ((60, 16, "uint8"), (12, 1024, "int16"), (12, 16, "uint8"),
             *BUDGET_BOOKS)
+# the slice-9 phase: analogy triples, grouping and clustering token sets,
+# texts for tokenize, the migrated engine's rows. Floors below the measured
+# values (the lowest of three runs in brackets; the builds differ run to
+# run), catching a broken path, not drift.
+ANALOGY_N, GROUP_T, GROUP_G, CLUSTER_T, CLUSTER_K = 64, 10_000, 100, 2_000, 20
+TOKENIZE_N, MIGRATE_N = 256, 20_000
+ENGINE_FLOORS = {"knn_in_pq_batch@5": 0.45,                     # (0.5602)
+                 "analogy_3cosadd_pq": 0.35,                    # (0.4688)
+                 "analogy_3cosadd_ivfadc": 0.2,                 # (0.3750)
+                 "analogy_3cosadd_in_pq": 0.05,                 # (0.1719)
+                 "analogy_3cosadd_in_ivpq": 0.05,               # (0.1719)
+                 "grouping_func_pq": 0.5}                       # (0.6611)
 # the insert phase: new two-word terms, in batches
 INSERT_TERMS, INSERT_BATCH = 10_240, 2_560
 INSERT_FLOORS = {"pq_pv20_self@5": 0.9, "ivfadc_pv20_self@5": 0.8}
@@ -563,7 +593,7 @@ def rows_to_ids(torch, store, rows, names, k: int):
 
 def insert_phase(torch, ExactIndex, eng, exact8, run_path,
                  path_launches: dict, card: str) -> dict:
-    """Phase 7: ``insert_batch`` of INSERT_TERMS new terms "w{i} w{i+N/2}"
+    """Phase 8: ``insert_batch`` of INSERT_TERMS new terms "w{i} w{i+N/2}"
     (distinct, each the mean of two existing words) in batches of
     INSERT_BATCH, with the engine's LUT knob at int8. After each batch:
     the standalone int8 exact index ``exact8`` is extended with the batch's
@@ -625,7 +655,7 @@ def insert_phase(torch, ExactIndex, eng, exact8, run_path,
                "insert_s": dt, "extended_s": t_ext, "spliced": bool(spliced),
                "ivfadc_tail": eng.ivfadc.tail_count, **selfrec}
         out["batches"].append(row)
-        log(f"[7] insert batch {b0 // INSERT_BATCH + 1}: {n_ins} terms in "
+        log(f"[8] insert batch {b0 // INSERT_BATCH + 1}: {n_ins} terms in "
             f"{dt:.3f} s ({n_ins / dt:.0f} terms/s), int8 exact extended() "
             f"{t_ext * 1e3:.2f} ms, IVFADC tail {eng.ivfadc.tail_count}"
             f"{' (spliced)' if spliced else ''}, " + ", ".join(
@@ -655,6 +685,307 @@ def insert_phase(torch, ExactIndex, eng, exact8, run_path,
         check(path_launches["after_insert"].get(name, 0) > 0,
               f"{name} did not launch on the grown tables")
     eng.set_pq_lut_dtype("bf16")
+    return out
+
+
+def engine_phase(torch, eng, store, words, qjoin, jwords, run_path,
+                 path_launches: dict, card: str) -> dict:
+    """Phase 7, slice 9: the rest of the engine on the full-width engine,
+    each call a path of its own (launch counts set to 0 before it and read
+    after it) and timed on the host clock with a synchronize: in-set kNN
+    over the first JOIN_T rows (K2 bit-equal to its plain version on the
+    gathered (m, JOIN_T) table), the ten analogy methods over ANALOGY_N
+    seeded triples, both groupings, the three clusterings, tokenize,
+    autotune and autotune_join, warmup, a pregathered handle over the
+    whole store, the unprepared join's tile cache, and a FREDDY dump round
+    trip of a MIGRATE_N-row engine. The engine's parameters and dispatch
+    are restored afterwards."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from postgres_word2vec_tpu_torch import Freddy, VectorStore
+    from postgres_word2vec_tpu_torch.ops import kernels, lut
+    from postgres_word2vec_tpu_torch.ops.vector_ops import no_tf32
+    from postgres_word2vec_tpu_torch.utils import migrate
+
+    saved_params = dataclasses.replace(eng.params)
+    saved_dispatch = dict(eng.dispatch)
+    dev = store.device
+    vn = store.vectors_norm
+    tids = torch.arange(JOIN_T, device=dev)
+    out = {"ms": {}, "launches": {}}
+
+    def call(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_path(f"s9_{name}", fn)
+        out["ms"][name] = (time.perf_counter() - t0) * 1e3
+        out["launches"][name] = path_launches[f"s9_{name}"]
+        return res
+
+    def launched(name, kernel, at_least=1):
+        n = out["launches"][name].get(kernel, 0)
+        check(n >= at_least, f"{name} launched {kernel} {n} times, not "
+              f"at least {at_least}")
+
+    def settings():
+        eng.params = dataclasses.replace(saved_params)
+        eng.dispatch = dict(saved_dispatch)
+        eng.set_pq_lut_dtype("bf16")
+        eng.set_statistics_table("t100k")
+        eng.set_alpha(200)
+        eng.set_method_flag(0)
+        eng.set_pvf(20)
+        eng.set_w(3)
+
+    settings()
+
+    # ---- in-set kNN over the first JOIN_T rows
+    pq = eng.pq
+    luts = lut.build_luts(pq._rotate(qjoin[:EVAL_Q]), pq.codebook.centroids)
+    table = pq.transposed_codes().index_select(1, tids)
+    got, want = kernels.adc_scan(luts, table), kernels.adc_scan_plain(
+        luts, table)
+    check(torch.equal(got, want), "K2 differs from its plain version on the "
+          f"gathered (m, {JOIN_T}) target table")
+    del luts, table, got, want
+    res = call("knn_in_exact", lambda: eng.knn_in_exact("w7", K, tids))
+    check(res[0][0] == "w7", f"knn_in_exact misses its own word: {res[:2]}")
+    res = call("knn_in_pq", lambda: eng.knn_in_pq("w7", K, tids))
+    check("w7" in [w for w, _ in res], f"knn_in_pq misses w7: {res}")
+    launched("knn_in_pq", "adc_scan")
+    rows = call("knn_in_pq_batch",
+                lambda: eng.knn_in_pq_batch(jwords, JOIN_K, tids))
+    launched("knn_in_pq_batch", "adc_scan", -(-JOIN_Q // 512))
+    ids5 = rows_to_ids(torch, store, rows, jwords[:EVAL_Q], JOIN_K)
+    gt5 = eng.exact.search_in(qjoin[:EVAL_Q], JOIN_K, tids)[1].cpu()
+    rec = {"knn_in_pq_batch@5": recall_at(ids5, gt5, JOIN_K)}
+    tmask = torch.ones(JOIN_T, dtype=torch.bool, device=dev)
+    for impl in ("knn_in_exact", "knn_in_pq"):
+        eng.set_knn_in_function(impl)
+        d, i = call(f"knn_in_matrix_{impl}", lambda: eng.knn_in_matrix(
+            qjoin[:EVAL_Q], K, tids, tmask))
+        check(bool(torch.isfinite(d).all()) and i.shape == (EVAL_Q, K),
+              f"knn_in_matrix ({impl}) results")
+    launched("knn_in_matrix_knn_in_pq", "adc_scan")
+
+    # ---- analogy: seeded triples, every method
+    rng = np.random.default_rng(SEED)
+    triples = [tuple(f"w{i}" for i in rng.choice(N, 3, replace=False))
+               for _ in range(ANALOGY_N)]
+
+    def direct(kind, t):
+        """The float32 argmax of an exact method computed here."""
+        with no_tf32():
+            v = [vn[store.get_id(w)] for w in t]
+            if kind == "3cosadd":
+                sc = vn @ (v[2] - v[0] + v[1])
+            elif kind == "3cosmul":
+                c1, c2, c3 = (vn @ x for x in v)
+                sc = ((c3 + 1) / 2) * ((c2 + 1) / 2) / ((c1 + 1) / 2 + 0.001)
+            elif kind == "pair_direction":
+                raw = store.vectors
+                r = [raw[store.get_id(w)] for w in t]
+                def unit(x):
+                    return x / torch.clamp_min(torch.sqrt(torch.sum(
+                        x * x, dim=-1, keepdim=True)), 1e-12)
+                dq = unit(r[0] - r[1])
+                sc = torch.cat([unit(r[2][None] - raw[s0:s0 + 262144]) @ dq
+                                for s0 in range(0, N, 262144)])
+            else:                                   # in-set 3CosAdd
+                sc = torch.full((N,), -float("inf"), device=dev)
+                sc[tids] = vn[tids] @ (v[2] - v[0] + v[1])
+            sc[torch.tensor([store.get_id(w) for w in t], device=dev)] = \
+                -float("inf")
+            return store.words[int(torch.argmax(sc))]
+
+    answers = {}
+    for name in ("analogy_3cosadd", "analogy_3cosmul",
+                 "analogy_pair_direction", "analogy_3cosadd_pq",
+                 "analogy_3cosadd_ivfadc", "analogy_3cosadd_in",
+                 "analogy_3cosadd_in_pq", "analogy_3cosadd_in_ivpq"):
+        extra = (tids,) if "_in" in name else ()
+        fn = getattr(eng, name)
+        answers[name] = call(name, lambda fn=fn, extra=extra: [
+            fn(*t, *extra) for t in triples])
+    for kind in ("3cosadd", "3cosmul", "pair_direction"):
+        want = [direct(kind, t) for t in triples]
+        check(answers[f"analogy_{kind}"] == want,
+              f"analogy_{kind} differs from the float32 argmax")
+    want_in = [direct("in", t) for t in triples]
+    check(answers["analogy_3cosadd_in"] == want_in,
+          "analogy_3cosadd_in differs from the float32 argmax")
+    for name, ref in (("analogy_3cosadd_pq", "analogy_3cosadd"),
+                      ("analogy_3cosadd_ivfadc", "analogy_3cosadd"),
+                      ("analogy_3cosadd_in_pq", "analogy_3cosadd_in"),
+                      ("analogy_3cosadd_in_ivpq", "analogy_3cosadd_in")):
+        rec[name] = float(np.mean([a == b for a, b in
+                                   zip(answers[name], answers[ref])]))
+    eng.set_analogy_function("analogy_3cosmul")
+    eng.set_analogy_in_function("analogy_3cosadd_in_pq")
+    a1 = call("analogy_facade", lambda: eng.analogy(*triples[0]))
+    a2 = call("analogy_in_facade",
+              lambda: eng.analogy_in(*triples[0], tids))
+    check(a1 == answers["analogy_3cosmul"][0]
+          and a2 == answers["analogy_3cosadd_in_pq"][0],
+          "the analogy façades do not follow their dispatch")
+    launched("analogy_3cosadd_pq", "adc_scan", ANALOGY_N)
+    launched("analogy_3cosadd_in_pq", "adc_scan", ANALOGY_N)
+
+    # ---- grouping
+    toks = [f"w{i}" for i in rng.choice(N, GROUP_T, replace=False)]
+    gwords = [f"w{i}" for i in rng.choice(N, GROUP_G, replace=False)]
+    g_exact = call("grouping_func", lambda: eng.grouping_func(toks, gwords))
+    g_pq = call("grouping_func_pq",
+                lambda: eng.grouping_func_pq(toks, gwords))
+    launched("grouping_func_pq", "adc_scan")
+    check(len(g_exact) == len(g_pq) == GROUP_T
+          and all(g in gwords for _, g in g_pq), "grouping results")
+    rec["grouping_func_pq"] = float(np.mean([a == b for a, b in
+                                             zip(g_exact, g_pq)]))
+
+    # ---- clustering
+    ctoks = [f"w{i}" for i in rng.choice(N, CLUSTER_T, replace=False)]
+    cvec = store.vectors_for(ctoks)
+
+    def mean_cos(assign):
+        a = torch.as_tensor(assign, device=dev) - 1
+        cen = torch.zeros(CLUSTER_K, D, device=dev).index_add_(0, a, cvec)
+        cen = cen / cen.norm(dim=1, keepdim=True).clamp_min(1e-12)
+        return float((cvec * cen[a]).sum(1).mean())
+
+    coh = {}
+    for name in ("cluster_exact", "cluster_pq", "cluster_ivpq"):
+        res = call(name, lambda name=name: getattr(eng, name)(ctoks,
+                                                              CLUSTER_K))
+        ids = [c for _, c in res]
+        check(len(res) == CLUSTER_T and set(ids) <= set(range(1, CLUSTER_K
+                                                              + 1)),
+              f"{name}: a token without a cluster id in 1..{CLUSTER_K}")
+        coh[name] = mean_cos(ids)
+    coh["random"] = mean_cos(rng.integers(1, CLUSTER_K + 1, CLUSTER_T))
+    check(coh["cluster_exact"] > coh["random"],
+          f"exact clustering's mean cosine {coh['cluster_exact']:.4f} does "
+          f"not beat a random assignment's {coh['random']:.4f}")
+    launched("cluster_pq", "adc_scan", 10)
+    out["cluster_mean_cos"] = coh
+
+    # ---- tokenize
+    pairs = rng.choice(N, (TOKENIZE_N, 2))
+    texts = [f"w{a} w{b}" for a, b in pairs]
+    tok = call("tokenize", lambda: [eng.tokenize(t) for t in texts])
+    raw = call("tokenize_raw", lambda: [eng.tokenize_raw(t) for t in texts])
+    pi = torch.as_tensor(pairs, device=dev)
+    want = vn[pi].mean(1)
+    want = (want / want.norm(dim=1, keepdim=True)).cpu().numpy()
+    want_raw = store.vectors[pi].mean(1).cpu().numpy()
+    out["tokenize_err"] = float(np.abs(np.stack(tok) - want).max())
+    out["tokenize_raw_err"] = float(np.abs(np.stack(raw) - want_raw).max())
+    check(out["tokenize_err"] <= 1e-6 and out["tokenize_raw_err"] <= 1e-6,
+          f"tokenize differs from the direct mean: {out['tokenize_err']}, "
+          f"{out['tokenize_raw_err']}")
+
+    # ---- autotune, warmup
+    def winner_ok(report):
+        ch = [r for r in report if r.get("chosen")]
+        ok = [r for r in report if r["meets_target"]]
+        return len(ch) == 1 and (ch[0] is ok[0] if ok else ch[0]["recall"]
+                                 == max(r["recall"] for r in report))
+
+    rep = call("autotune", lambda: eng.autotune(sample=256))
+    check(winner_ok(rep) and eng.dispatch["knn"] == next(
+        r["name"] for r in rep if r.get("chosen")), "autotune's winner")
+    rep_j = call("autotune_join",
+                 lambda: eng.autotune_join(targets=tids, sample=256))
+    check(winner_ok(rep_j), "autotune_join's winner")
+    out["autotune"], out["autotune_join"] = rep, rep_j
+    for name, r in (("autotune", rep), ("autotune_join", rep_j)):
+        log(f"[7] {name} report (fastest first; seconds per 256 queries): "
+            + "; ".join(f"{x['name']} {x['params']} recall "
+                        f"{x['recall']:.4f} {x['seconds'] * 1e3:.2f} ms"
+                        f"{' CHOSEN' if x.get('chosen') else ''}"
+                        for x in r) + f" on {card}")
+    settings()
+    call("warmup", eng.warmup)
+
+    # ---- pregathered handle over the whole store, in order
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ph = call("prepare_join_pregathered", lambda: eng.ivpq.prepare_join(
+        torch.arange(N, device=dev), vectors=vn, vecs_pregathered=True))
+    out["pregathered_peak_growth_bytes"] = \
+        torch.cuda.max_memory_allocated() - before
+    gathered = N * D * 4
+    check(ph.vectors is vn and out["pregathered_peak_growth_bytes"]
+          < gathered, f"the pregathered build grew memory by "
+          f"{out['pregathered_peak_growth_bytes']} bytes, not less than a "
+          f"gathered copy's {gathered}")
+    kw = dict(alpha=600, method=2, pvf=20, statistics=None)
+    d_p, i_p = call("join_pregathered_m2", lambda: eng.ivpq.search_join(
+        qjoin[:EVAL_Q], JOIN_K, prepared=ph, **kw))
+    d_a, i_a = eng.ivpq.search_join(qjoin[:EVAL_Q], JOIN_K,
+                                    prepared=eng.prepared_targets["all"],
+                                    **kw)
+    check(torch.equal(i_p, i_a) and torch.allclose(d_p, d_a, atol=1e-6,
+                                                   rtol=0),
+          "the pregathered join differs from the store-table handle's")
+    del ph
+
+    # ---- the unprepared join's tile cache
+    eng.ivpq._join_cache.clear()
+    eng.tracker.clear_track()
+    for n in (1, 2):
+        call(f"join_unprepared_m0_call{n}",
+             lambda: eng.knn_in_ivpq_batch(jwords, JOIN_K, tids))
+        if n == 1:
+            entry = next(iter(eng.ivpq._join_cache.values()))[0]
+    dr = eng.tracker.get_results()["data_retrieval_time"]
+    out["unprepared_data_retrieval_s"] = dr
+    check(dr[0] > 0 and dr[1] == 0.0 and len(eng.ivpq._join_cache) == 1
+          and next(iter(eng.ivpq._join_cache.values()))[0] is entry,
+          f"the second unprepared join built its tiles again ({dr})")
+
+    # ---- FREDDY dump round trip of a MIGRATE_N-row engine
+    small = Freddy.build(
+        VectorStore.from_arrays(words[:MIGRATE_N], store.vectors[:MIGRATE_N]),
+        seed=SEED, preset="reference", k_coarse=128, ivpq_k_coarse=16,
+        train_size=None, iters=8)
+    with tempfile.TemporaryDirectory() as dump:
+        call("export_engine", lambda: migrate.export_engine(small, dump))
+        back = call("import_engine", lambda: migrate.import_engine(dump))
+    check(back.store.device.type == "cuda" and back.pq.codes.is_cuda
+          and back.ivpq.codes.is_cuda, "the imported engine is not on the "
+          "card")
+    for fam in ("k_nearest_neighbour", "k_nearest_neighbour_pq",
+                "k_nearest_neighbour_ivfadc"):
+        for e in (small, back):
+            e.set_knn_function(fam)
+        check(back.knn_batch_exact(words[:8], K) == small.knn_batch_exact(
+            words[:8], K) and back.knn("w3", K) == small.knn("w3", K),
+            f"the imported engine's {fam} differs from the exported one's")
+    mt = list(range(0, MIGRATE_N, 3))
+    check(back.knn_in_ivpq_batch(words[:16], JOIN_K, mt)
+          == small.knn_in_ivpq_batch(words[:16], JOIN_K, mt),
+          "the imported engine's join differs from the exported one's")
+    del small, back
+
+    eng.params = dataclasses.replace(saved_params)
+    eng.dispatch = dict(saved_dispatch)
+    out["recall"] = rec
+    for name, t in out["ms"].items():
+        log(f"[7] call {name}: {t:.2f} ms, launched "
+            f"{out['launches'][name]} on {card}")
+    log("[7] in-set recall and agreement with exact: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in rec.items()) + "; clustering mean cosine "
+        + ", ".join(f"{k} {v:.4f}" for k, v in coh.items())
+        + f"; pregathered build's peak growth "
+        f"{out['pregathered_peak_growth_bytes'] / 1e9:.3f} GB (a gathered "
+        f"copy {gathered / 1e9:.3f} GB)")
+    for name, floor in ENGINE_FLOORS.items():
+        check(rec[name] >= floor, f"{name} {rec[name]:.4f} < floor {floor}")
     return out
 
 
@@ -1216,6 +1547,22 @@ def main() -> int:
     log(f"[5] library for adc_scan: F.embedding_bag {tuple(emb_idx.shape)} "
         f"over {tuple(emb_w.shape)} {library_ms['adc_scan']:.3f} ms, max abs "
         f"diff from K2 {k2_library_err:.3g} on {card}")
+    # K3's yardstick, never called by the port: the same F.embedding_bag
+    # over the int8 LUTs cast to float32 (the integer sums are exact in
+    # float32), then times each query's scale, as K3 rescales once
+    emb_w = ql.float().reshape(EVAL_Q, -1).t().contiguous()
+
+    def k3_library():
+        return torch.nn.functional.embedding_bag(emb_idx, emb_w,
+                                                 mode="sum") * sc
+    k3_library_err = float((k3_library().t() - kernels.adc_scan_int8(
+        ql, sc, codes_t)).abs().max())
+    library_ms["adc_scan_int8"] = p50(cuda_ms(torch, k3_library, reps=3))
+    log(f"[5] library for adc_scan_int8: F.embedding_bag "
+        f"{tuple(emb_idx.shape)} over the int8 LUTs as float32 "
+        f"{tuple(emb_w.shape)}, times the scale, "
+        f"{library_ms['adc_scan_int8']:.3f} ms, max abs diff from K3 "
+        f"{k3_library_err:.3g} on {card}")
     del emb_w, emb_idx
     # K10's yardstick, never called by the port: one bf16 torch.bmm of the
     # groups' (rows, D) x (D, block_t) products over the join's real groups,
@@ -1264,40 +1611,60 @@ def main() -> int:
         return ms
     library_ms["budget_exact"] = k9_library(q256[7:8], tiles_1)
     k9_library_batch_ms = k9_library(qj, tiles_jv)
-    # K7's yardstick, never called by the port: one F.embedding_bag summing
-    # each pair's m LUT entries, LUT id · m·k + j·k + code_j, over the
-    # join's whole (B·P·block_t, m) index made beforehand (not timed); the
-    # row term is left out, as K10's yardstick leaves out the row norms
-    nt_a = jt100.codes_t.shape[1] // jt100.block_t
-    m_a, k_a = luts_join.shape[1], luts_join.shape[2]
-    flat_t = tiles_j.reshape(-1).clamp(0, nt_a - 1).long()
-    emb_idx = (jt100.codes_t.view(m_a, nt_a, jt100.block_t)[:, flat_t]
-               .permute(1, 2, 0).long()
-               + (torch.arange(m_a, device=dev) * k_a)
-               + (torch.arange(qj.shape[0], device=dev).repeat_interleave(
-                   tiles_j.shape[1]) * m_a * k_a)[:, None, None])
-    emb_idx = emb_idx.reshape(-1, m_a)
-    emb_w = luts_join.reshape(-1, 1)
-    emb = torch.nn.functional.embedding_bag(emb_idx, emb_w, mode="sum")
-    term_g = jt100.rowterm.view(nt_a, jt100.block_t)[flat_t].reshape(-1, 1)
-    k7_want = kernels.budget_adc_grouped(
-        luts_join, jt100.codes_t, jt100.rowterm, tiles_j,
-        block_t=jt100.block_t, rows=32).reshape(-1, 1)
-    fin = torch.isfinite(k7_want)
-    check(torch.equal(fin, torch.isfinite(emb + term_g)),
-          "K7's library call is finite where K7 is not")
-    k7_library_err = float(((emb + term_g) - k7_want)[fin].abs().max())
-    del emb, term_g, k7_want, fin
-    library_ms["budget_adc_grouped"] = p50(cuda_ms(
-        torch, lambda: torch.nn.functional.embedding_bag(emb_idx, emb_w,
-                                                         mode="sum"),
-        reps=3))
-    log(f"[5] library for budget_adc_grouped: F.embedding_bag "
-        f"{tuple(emb_idx.shape)} over {tuple(emb_w.shape)} (every pair, the "
-        f"inf tile's too; no row term) "
-        f"{library_ms['budget_adc_grouped']:.4f} ms, max abs diff from K7 "
-        f"after the row term {k7_library_err:.3g} on {card}")
-    del emb_w, emb_idx
+    # The budget ADC kernels' yardstick, never called by the port: one
+    # F.embedding_bag summing each (query, slot) pair's row's m LUT entries,
+    # LUT id · m·k + j·k + code_j, over the plan's whole (B·P·block_t, m)
+    # index made beforehand (not timed); int8 LUTs cast to float32 (exact
+    # integer sums) and times the query's scale; the row term is left out
+    # of the timed call, as K10's yardstick leaves out the row norms, and
+    # added back for the comparison with the kernel. K7 at the 100k join's
+    # plan, K6 at its kernels-line shape (the IVFADC batch), K8 at K7's.
+    def pair_library(name, lt, jt, tl, kernel_out, scale=None):
+        nt = jt.codes_t.shape[1] // jt.block_t
+        b, m, k = lt.shape
+        flat = tl.reshape(-1).clamp(0, nt - 1).long()
+        idx = (jt.codes_t.view(m, nt, jt.block_t)[:, flat].permute(1, 2, 0)
+               .long() + torch.arange(m, device=dev) * k
+               + (torch.arange(b, device=dev).repeat_interleave(tl.shape[1])
+                  * m * k)[:, None, None]).reshape(-1, m)
+        w = lt.float().reshape(-1, 1)
+        rows_scale = (None if scale is None else scale.repeat_interleave(
+            tl.shape[1] * jt.block_t)[:, None])
+
+        def call():
+            bag = torch.nn.functional.embedding_bag(idx, w, mode="sum")
+            return bag if rows_scale is None else bag * rows_scale
+        got = call() + jt.rowterm.view(nt, jt.block_t)[flat].reshape(-1, 1)
+        want = kernel_out.reshape(-1, 1)
+        fin = torch.isfinite(want)
+        check(torch.equal(fin, torch.isfinite(got)),
+              f"{name}'s library call is finite where {name} is not")
+        err = float((got - want)[fin].abs().max())
+        del got, want, fin
+        library_ms[name] = p50(cuda_ms(torch, call, reps=3))
+        log(f"[5] library for {name}: F.embedding_bag {tuple(idx.shape)} "
+            f"over {tuple(w.shape)}{'' if scale is None else ' times scale'}"
+            f" (every pair, the inf tile's too; no row term) "
+            f"{library_ms[name]:.4f} ms, max abs diff from the kernel after "
+            f"the row term {err:.3g} on {card}")
+        return err
+
+    library_err = {
+        "budget_adc_grouped": pair_library(
+            "budget_adc_grouped", luts_join, jt100, tiles_j,
+            kernels.budget_adc_grouped(luts_join, jt100.codes_t,
+                                       jt100.rowterm, tiles_j,
+                                       block_t=jt100.block_t, rows=32)),
+        "budget_adc": pair_library(
+            "budget_adc", luts_ivf, tiled, tiles_ivf,
+            kernels.budget_adc(luts_ivf, tiled.codes_t, tiled.rowterm,
+                               tiles_ivf, block_t=tiled.block_t)),
+        "budget_adc_grouped_int8": pair_library(
+            "budget_adc_grouped_int8", ql_join, jt100, tiles_j,
+            kernels.budget_adc_grouped_int8(ql_join, sc_join, jt100.codes_t,
+                                            jt100.rowterm, tiles_j,
+                                            block_t=jt100.block_t, rows=32),
+            scale=sc_join)}
     # The queries per block of K4, K2, K3 and K5, swept at the main shape
     # through the C entry points that take them (the wrappers let the
     # kernels choose: 16 for K4 and K2, 64 for K3 and K5)
@@ -1612,10 +1979,16 @@ def main() -> int:
             **{name: fn for name, (fn, _, _) in paths.items()}, **singles},
             card, args.profile)
 
-    # ------------------------------------------------------- 7: insert
+    # ------------------------------------- 7: slice 9, the rest of the engine
+    t0 = time.perf_counter()
+    engine = engine_phase(torch, eng, store, words, qjoin, jwords, run_path,
+                          path_launches, card)
+    log(f"[7] slice 9 phase took {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------------- 8: insert
     inserted = insert_phase(torch, ExactIndex, eng, exact8, run_path,
                             path_launches, card)
-    log(f"[7] path after_insert launched {path_launches['after_insert']}")
+    log(f"[8] path after_insert launched {path_launches['after_insert']}")
     launches = tally()
 
     summary = {"kernels": [
@@ -1626,9 +1999,10 @@ def main() -> int:
          "bound_by": bounds[k.name][1], "bound_term": bounds[k.name][2],
          "library_ms": library_ms[k.name]}
         for k in kernels.KERNELS.values()]}
-    log(f"[8] the whole run took {time.perf_counter() - started:.1f} s")
+    log(f"[9] the whole run took {time.perf_counter() - started:.1f} s")
     log(json.dumps({"recall": rec, "paths_ms_per_query": times,
-                    "insert": inserted, "path_launches": path_launches,
+                    "insert": inserted, "engine": engine,
+                    "path_launches": path_launches,
                     "sweep_ms": sweep, "budget_adc_join_ms": k6_ms,
                     "budget_adc_join_bounds": k6_bounds,
                     "budget_adc_grouped_bound_all_pairs": k7_bound_all,
@@ -1636,6 +2010,8 @@ def main() -> int:
                     "budget_exact_library_batch_ms": k9_library_batch_ms,
                     "wrapper_kernels": wrapper_kernels,
                     "adc_scan_library_err": k2_library_err,
+                    "adc_scan_int8_library_err": k3_library_err,
+                    "budget_library_err": library_err,
                     "join_100k_groups": group_stats,
                     "inf_tile_share": inf_share, "gpu": card}))
     log(json.dumps(summary))

@@ -8,10 +8,12 @@ numpy and never JAX. Importing it initialises no CUDA context and builds
 or loads no kernel: the hand-written Hopper kernels (``csrc/``) are built
 at their first launch.
 
-Slices 1 and 2 are ported: the vector store; the exact, PQ, IVFADC and
-IVPQ index families; the engine's ``knn`` façade in its exact, PQ, PQ +
-post-verify, IVFADC and IVFADC + post-verify families, the ``knn_batch``
-façade, and the IVPQ kNN-join with statistics and prepared target sets.
+Ported: the vector store (arrays, word2vec text and binary files); the
+exact, PQ, IVFADC and IVPQ index families with the int8 configuration and
+online insert; the whole ``Freddy`` engine — kNN, batch, in-set kNN and
+joins, analogy, grouping, clustering, tokenize, statistics, autotune,
+warmup, save and load — but sharding; FREDDY dump import and export
+(``utils/migrate.py``).
 """
 
 from postgres_word2vec_tpu_torch.store import VectorStore

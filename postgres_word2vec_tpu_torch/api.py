@@ -1,7 +1,7 @@
-"""FREDDY-compatible engine — slices 1 to 3 of the port.
+"""FREDDY-compatible engine — the whole engine but sharding.
 
-Counterpart of ``postgres_word2vec_tpu/api.py`` for these paths from a
-``VectorStore`` through ``Freddy.build``:
+Counterpart of ``postgres_word2vec_tpu/api.py``, from a ``VectorStore``
+through ``Freddy.build``:
 
 - the ``knn`` façade over the whole store in five families: exact
   (``k_nearest_neighbour``), PQ (``k_nearest_neighbour_pq``), PQ with
@@ -18,7 +18,14 @@ Counterpart of ``postgres_word2vec_tpu/api.py`` for these paths from a
   join's budget round over int8 LUTs, kernels K3, K5 and K8 on the card)
   and ``exact_dtype="int8"``;
 - online insert, ``insert_batch``: new multi-word terms appended to the
-  store and to every built index.
+  store and to every built index;
+- the in-set family ``knn_in`` (exact, PQ through K2 on the card) with its
+  batched matrix cores and the PQ join baseline ``knn_in_pq_batch``, and
+  the TRACK stage breakdown (``set_track_stages``);
+- analogy (3CosAdd, 3CosMul, pair direction; PQ-, IVFADC- and
+  IVPQ-accelerated and in-set variants), grouping (exact and on PQ codes),
+  clustering (exact, PQ, IVPQ joins), ``tokenize`` / ``tokenize_raw``;
+- ``autotune``, ``autotune_join`` and ``warmup``.
 
 The dispatch registry (sql:78-132), runtime parameters (sql:188-202),
 result shapes (``(word, similarity)`` rows, ``(query, word, similarity)``
@@ -26,9 +33,10 @@ for batches and joins, similarity = 1 − d²/2, sql:511) and the on-disk
 engine directory are the JAX engine's, so a directory saved by the JAX
 ``Freddy.save`` loads here and the other way round.
 
-Every other method of the JAX engine exists here and raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it. None
-falls back to something else.
+The one method of the JAX engine not ported, ``enable_sharding``, exists
+here and raises ``NotImplementedError`` naming its ROADMAP.md item
+(:data:`NOT_PORTED`); ``mesh=`` raises likewise. Nothing falls back to
+something else.
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ import dataclasses
 import json
 import time
 from pathlib import Path
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -48,8 +56,9 @@ from postgres_word2vec_tpu_torch.models.ivpq import (IVPQIndex, PQ_CALC,
                                                      PreparedJoin,
                                                      build_statistics)
 from postgres_word2vec_tpu_torch.models.pq import PQIndex
-from postgres_word2vec_tpu_torch.ops import kernels
+from postgres_word2vec_tpu_torch.ops import kernels, lut
 from postgres_word2vec_tpu_torch.ops import vector_ops as vo
+from postgres_word2vec_tpu_torch.ops.vector_ops import no_tf32
 from postgres_word2vec_tpu_torch.store import VectorStore
 from postgres_word2vec_tpu_torch.utils import convert
 from postgres_word2vec_tpu_torch.utils.device import resolve_device
@@ -85,8 +94,13 @@ DEFAULT_DISPATCH = {
     "cluster": "cluster_exact",
 }
 
-_ENGINE = "ROADMAP.md queue 1, item 8 (engine)"
 _SHARDING = "ROADMAP.md queue 1, item 11 (multi-GPU sharding)"
+
+
+class NoMatrixCore(LookupError):
+    """The dispatched ``knn_in`` impl has no fixed-shape batched matrix
+    core (JAX api.py:79-84). A sentinel of its own, so a caller's
+    fallback cannot swallow an unrelated ``KeyError``."""
 
 
 class Freddy:
@@ -119,6 +133,8 @@ class Freddy:
         #: named join-target handles (:meth:`prepare_targets`)
         self.prepared_targets: dict[str, PreparedJoin] = {}
         self.tracker = GLOBAL_TRACKER
+        #: emit the full 5-stage TRACK breakdown (:meth:`set_track_stages`)
+        self.track_stages = False
         self.exact = ExactIndex(store.vectors_norm, exact_dtype,
                                 approx=exact_approx)
 
@@ -233,6 +249,36 @@ class Freddy:
                            "create_statistics first")
         self.params.statistics_table = name
 
+    def set_track_stages(self, flag: bool) -> None:
+        """Emit the full 5-stage TRACK breakdown (precomputation / query
+        construction / data retrieval / computation / total,
+        freddy.c:527-651, ivpq_search_in.c:233-697). The LUT build and the
+        target-code gather are run and timed a second time on their own
+        (the search paths fuse them), so it is off by default."""
+        self.track_stages = bool(flag)
+
+    def _timed(self, metric: str, fn) -> None:
+        """Time ``fn()`` into ``metric``, waiting for the card's work."""
+        t0 = time.perf_counter()
+        out = fn()
+        if out.is_cuda:
+            torch.cuda.synchronize(out.device)
+        self.tracker.track(metric, time.perf_counter() - t0)
+
+    def _track_precompute(self, queries: torch.Tensor,
+                          centroids: torch.Tensor) -> None:
+        """TRACK ``precomputation_time``: the per-query LUT build
+        (freddy.c:519-527, ivpq_search_in.c:261-291), run on its own."""
+        self._timed("precomputation_time",
+                    lambda: lut.build_luts(queries, centroids))
+
+    def _track_data_retrieval(self, codes: torch.Tensor,
+                              tids: torch.Tensor) -> None:
+        """TRACK ``data_retrieval_time``: the (T, m) target-code gather,
+        the reference's SPI fetch (freddy.c:527-651), run on its own."""
+        self._timed("data_retrieval_time",
+                    lambda: codes[torch.clamp_min(tids.long(), 0)])
+
     # -------------------------------------------------- dispatch setters
     def _set_dispatch(self, op: str, impl_name: str) -> None:
         if not hasattr(self, impl_name):
@@ -242,11 +288,26 @@ class Freddy:
     def set_knn_function(self, name: str) -> None:
         self._set_dispatch("knn", name)
 
+    def set_knn_in_function(self, name: str) -> None:
+        self._set_dispatch("knn_in", name)
+
     def set_knn_batch_function(self, name: str) -> None:
         self._set_dispatch("knn_batch", name)
 
     def set_knn_join_function(self, name: str) -> None:
         self._set_dispatch("knn_join", name)
+
+    def set_analogy_function(self, name: str) -> None:
+        self._set_dispatch("analogy", name)
+
+    def set_analogy_in_function(self, name: str) -> None:
+        self._set_dispatch("analogy_in", name)
+
+    def set_groups_function(self, name: str) -> None:
+        self._set_dispatch("groups", name)
+
+    def set_cluster_function(self, name: str) -> None:
+        self._set_dispatch("cluster", name)
 
     # ------------------------------------------------------------ helpers
     def _query_matrix(self, query) -> torch.Tensor:
@@ -418,6 +479,55 @@ class Freddy:
         return self._format_join(list(queries), d, i)
 
     # -------------------------------------------------------------- in-set
+    def knn_in(self, query, k: int, targets) -> list[tuple]:
+        """Generic restricted façade (sql:232-246)."""
+        return getattr(self, self.dispatch["knn_in"])(query, k, targets)
+
+    def _exact_in_core(self, q: torch.Tensor, k: int, tids: torch.Tensor,
+                       tmask: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.exact.search_in(q, k, tids, tmask)
+
+    def _pq_in_core(self, q: torch.Tensor, k: int, tids: torch.Tensor,
+                    tmask: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+        return self._require(self.pq, "PQ").search_in(q, k, tids, tmask)
+
+    #: dispatch impl → batched matrix core of the in-set family; IVPQ has
+    #: none (its round count depends on the data).
+    _KNN_IN_CORES = {
+        "knn_in_exact": "_exact_in_core",
+        "knn_in_pq": "_pq_in_core",
+    }
+
+    def knn_in_matrix(self, q: torch.Tensor, k: int, tids: torch.Tensor,
+                      tmask: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Batched in-set kNN over a prepared (B, d) matrix and target
+        id / mask tensors, honoring ``dispatch['knn_in']``. Raises
+        :class:`NoMatrixCore` for an impl without one."""
+        impl = self.dispatch["knn_in"]
+        core = self._KNN_IN_CORES.get(impl)
+        if core is None:
+            raise NoMatrixCore(f"no matrix core for knn_in impl {impl!r}")
+        return getattr(self, core)(q, k, tids, tmask)
+
+    def _knn_in_one(self, core: str, query, k: int, targets) -> list[tuple]:
+        q = self._query_matrix(query)
+        tids, tmask = self._target_ids(targets)
+        with self.tracker.stage("total_time"):
+            d, i = getattr(self, core)(q, k, tids, tmask)
+        return self._format_knn(d, i)[0]
+
+    def knn_in_exact(self, query, k: int, targets) -> list[tuple]:
+        """Exact in-set kNN — the reference's four overloads (token or
+        vector × words or ids), sql:991-1084."""
+        return self._knn_in_one("_exact_in_core", query, k, targets)
+
+    def knn_in_pq(self, query, k: int, targets) -> list[tuple]:
+        """PQ in-set kNN (sql:664-680 → pq_search_in); K2 on the card."""
+        return self._knn_in_one("_pq_in_core", query, k, targets)
+
     def knn_in_ivpq(self, query, k: int, targets) -> list[tuple]:
         """IVPQ in-set kNN (sql:682-718 → ivpq_search_in, B=1)."""
         rows = self.knn_in_ivpq_batch([query] if isinstance(query, str)
@@ -449,8 +559,38 @@ class Freddy:
                        else self._target_ids(targets))
         with self.tracker.stage("total_time"):
             d, i = self._chunked_q(
-                q, lambda qc: self.exact.search_in(qc, k, tids, tmask))
+                q, lambda qc: self._exact_in_core(qc, k, tids, tmask))
         return self._format_join(list(queries), d, i)
+
+    def knn_in_pq_batch(self, queries: Sequence[str], k: int,
+                        targets) -> list[tuple]:
+        """PQ kNN-join baseline (sql:846-901 → pq_search_in_batch), in
+        chunks of 512 queries, each one K2 launch on the card.
+
+        TRACK stages (freddy.c:519-651): query construction (query and
+        target resolution), precomputation (the LUT build) and data
+        retrieval (the target-code gather), the last two timed on their
+        own under ``track_stages`` (the search fuses them), and
+        computation (gather, ADC scan, top-k)."""
+        pq = self._require(self.pq, "PQ")
+        with self.tracker.stage("total_time"):
+            with self.tracker.stage("query_construction_time"):
+                q = self._query_matrix(list(queries))
+                ph = self._resolve_prepared(targets)
+                tids, tmask = ((ph.target_ids, ph.target_mask)
+                               if ph is not None
+                               else self._target_ids(targets))
+            if self.track_stages:
+                self._track_precompute(pq._rotate(q), pq.codebook.centroids)
+                self._track_data_retrieval(pq.codes, tids)
+            else:
+                self.tracker.track("data_retrieval_time", 0.0)
+            with self.tracker.stage("computation_time"):
+                d, i = self._chunked_q(
+                    q, lambda qc: self._pq_in_core(qc, k, tids, tmask),
+                    chunk=512)
+                ids_host = i.cpu()            # wait for the device
+        return self._format_join(list(queries), d, ids_host)
 
     def prepare_targets(self, targets, *, name: str | None = None
                         ) -> PreparedJoin:
@@ -501,6 +641,8 @@ class Freddy:
                 q = self._query_matrix(queries)
                 if ph is None:
                     tids, tmask = self._target_ids(targets)
+            if self.track_stages:
+                self._track_precompute(q, ivpq.codebook.centroids)
             t0 = time.perf_counter()
             d, i, info = ivpq.search_join(
                 q, k, None if ph is not None else tids, prepared=ph,
@@ -522,6 +664,274 @@ class Freddy:
                 self.tracker.track("target_count", float(t))
         return self._format_join(names, d, ids_host)
 
+    # ============================================================= analogy
+    def analogy(self, w1: str, w2: str, w3: str) -> str:
+        """Generic analogy façade (sql:268-280)."""
+        return getattr(self, self.dispatch["analogy"])(w1, w2, w3)
+
+    def analogy_in(self, w1: str, w2: str, w3: str, targets) -> str:
+        """Generic in-set analogy façade (sql:282-296)."""
+        return getattr(self, self.dispatch["analogy_in"])(w1, w2, w3,
+                                                          targets)
+
+    def _exclude(self, scores: torch.Tensor, words: Sequence[str]
+                 ) -> torch.Tensor:
+        """``scores`` with the known ``words``' rows set to −inf."""
+        ids = self.store.get_ids(words, strict=False)
+        if ids:
+            scores[torch.as_tensor(ids, device=scores.device)] = -float("inf")
+        return scores
+
+    def _analogy_vec(self, w1: str, w2: str, w3: str) -> torch.Tensor:
+        """3CosAdd query vector v3 − v1 + v2 on normalized vectors
+        (sql:1270-1288, "w3 - w1 + w2")."""
+        v1, v2, v3 = (self.store.vector_for(w) for w in (w1, w2, w3))
+        return v3 - v1 + v2
+
+    def _argmax_word(self, scores: torch.Tensor) -> str:
+        return self.store.words[int(torch.argmax(scores))]
+
+    @no_tf32()
+    def analogy_3cosadd(self, w1: str, w2: str, w3: str) -> str:
+        """Default analogy: argmax cos(v3 − v1 + v2, v), the inputs
+        excluded (sql:1270-1288); float32 scores, TF32 off."""
+        scores = self.store.vectors_norm @ self._analogy_vec(w1, w2, w3)
+        return self._argmax_word(self._exclude(scores, (w1, w2, w3)))
+
+    @no_tf32()
+    def analogy_3cosadd_in(self, w1: str, w2: str, w3: str, targets) -> str:
+        """In-set 3CosAdd (sql:1290-1314): the best-scoring target that is
+        not an input word."""
+        q = self._analogy_vec(w1, w2, w3)
+        tids, _ = self._target_ids(targets)
+        scores = self.store.vectors_norm[tids] @ q
+        banned = {w1, w2, w3}
+        # the best few from the card; all of them only if those are banned
+        for n in sorted({min(16, len(tids)), len(tids)}):
+            pos = torch.topk(scores, n).indices
+            for w in self.store.get_words(tids[pos].tolist()):
+                if w not in banned:
+                    return w
+        raise ValueError("no admissible analogy result in target set")
+
+    @no_tf32()
+    def analogy_3cosmul(self, w1: str, w2: str, w3: str) -> str:
+        """3CosMul with the reference's shifted-cosine form ((cos+1)/2
+        ratios, ε = 0.001; sql:1231-1248)."""
+        v = self.store.vectors_norm
+        c1, c2, c3 = (v @ self.store.vector_for(w) for w in (w1, w2, w3))
+        scores = (((c3 + 1.0) / 2.0) * ((c2 + 1.0) / 2.0)) / (
+            ((c1 + 1.0) / 2.0) + 0.001)
+        return self._argmax_word(self._exclude(scores, (w1, w2, w3)))
+
+    #: rows of the raw table normalized at once by the pair-direction
+    #: analogy (its (N, d) temporary would double the table)
+    _PAIR_CHUNK = 262144
+
+    @no_tf32()
+    def analogy_pair_direction(self, w1: str, w2: str, w3: str) -> str:
+        """argmax cos(norm(v1 − v2), norm(v3 − v4)) over v4, on RAW vectors
+        (sql:1212-1229), in row chunks."""
+        raw = self.store.vectors
+        v1, v2, v3 = (self.store.vector_for(w, normalized=False)
+                      for w in (w1, w2, w3))
+        dir_q = vo.vec_normalize(v1 - v2)
+        c = self._PAIR_CHUNK
+        scores = torch.cat([vo.vec_normalize(v3[None, :] - raw[s:s + c])
+                            @ dir_q for s in range(0, raw.shape[0], c)])
+        return self._argmax_word(self._exclude(scores, (w1, w2, w3)))
+
+    def _analogy_query(self, w1: str, w2: str, w3: str) -> torch.Tensor:
+        return vo.vec_normalize(self._analogy_vec(w1, w2, w3))[None, :]
+
+    def analogy_3cosadd_pq(self, w1: str, w2: str, w3: str) -> str:
+        """PQ-accelerated 3CosAdd: an exact ADC shortlist of pvf+3, then an
+        exact re-rank (sql:1317-1346)."""
+        pq = self._require(self.pq, "PQ")
+        _, i = pq.search_pv(self._analogy_query(w1, w2, w3),
+                            self.params.pvf + 3, 1, self.store.vectors_norm,
+                            shortlist="exact")
+        return self._pick_not_banned(i[0], (w1, w2, w3))
+
+    def analogy_3cosadd_ivfadc(self, w1: str, w2: str, w3: str) -> str:
+        """IVFADC-accelerated 3CosAdd (sql:1428-1459)."""
+        ivf = self._require(self.ivfadc, "IVFADC")
+        _, i = ivf.search_pv(self._analogy_query(w1, w2, w3),
+                             self.params.pvf + 3, 1, self.store.vectors_norm,
+                             w=self.params.w)
+        return self._pick_not_banned(i[0], (w1, w2, w3))
+
+    def analogy_3cosadd_in_pq(self, w1: str, w2: str, w3: str,
+                              targets) -> str:
+        """In-set PQ-accelerated 3CosAdd (sql:1348-1381)."""
+        pq = self._require(self.pq, "PQ")
+        tids, tmask = self._target_ids(targets)
+        _, i = pq.search_in(self._analogy_query(w1, w2, w3),
+                            min(self.params.pvf + 3, tids.shape[0]), tids,
+                            tmask)
+        return self._pick_not_banned(i[0], (w1, w2, w3))
+
+    def analogy_3cosadd_in_ivpq(self, w1: str, w2: str, w3: str,
+                                targets) -> str:
+        """In-set IVPQ-accelerated 3CosAdd (sql:1383-1425)."""
+        ivpq = self._require(self.ivpq, "IVPQ")
+        tids, tmask = self._target_ids(targets)
+        p = self.params
+        _, i = ivpq.search_join(
+            self._analogy_query(w1, w2, w3), min(p.pvf + 3, tids.shape[0]),
+            tids, target_mask=tmask, vectors=self.store.vectors_norm,
+            statistics=self._active_statistics(), alpha=p.alpha, pvf=p.pvf,
+            method=p.method, confidence=p.confidence,
+            long_codes_threshold=p.long_codes_threshold,
+            lut_dtype=p.pq_lut_dtype)
+        return self._pick_not_banned(i[0], (w1, w2, w3))
+
+    def _pick_not_banned(self, ids: torch.Tensor, banned_words) -> str:
+        banned = set(banned_words)
+        for i in ids.tolist():
+            if i >= 0 and self.store.words[i] not in banned:
+                return self.store.words[i]
+        raise ValueError("analogy shortlist exhausted — raise pvf")
+
+    # ============================================================ grouping
+    def groups(self, tokens: Sequence[str],
+               group_tokens: Sequence[str]) -> list[tuple]:
+        """Generic grouping façade (sql:298-312)."""
+        return getattr(self, self.dispatch["groups"])(tokens, group_tokens)
+
+    def grouping_func(self, tokens: Sequence[str],
+                      group_tokens: Sequence[str]) -> list[tuple]:
+        """Exact grouping: each known token → its nearest group token
+        (sql:1462-1484, a loop of knn_in(token, 1, groups); one batched
+        in-set search here)."""
+        toks = [t for t in tokens if t in self.store]
+        tids, tmask = self._target_ids(list(group_tokens))
+        _, i = self.exact.search_in(self.store.vectors_for(toks), 1, tids,
+                                    tmask)
+        return [(t, self.store.words[g]) for t, g in zip(toks, i[:, 0].tolist())
+                if g >= 0]
+
+    def grouping_func_pq(self, tokens: Sequence[str],
+                         group_tokens: Sequence[str]) -> list[tuple]:
+        """PQ-code grouping (sql:1487-1509 → grouping_pq,
+        freddy.c:1176-1401): the tokens' PQ codes scored against one LUT
+        per group word, K2 on the card (:meth:`PQIndex.adc_in`); each token
+        takes the nearest group. The group vectors are rotated into an OPQ
+        index's basis before the LUTs are built (the JAX engine builds them
+        unrotated)."""
+        pq = self._require(self.pq, "PQ")
+        toks = [t for t in tokens if t in self.store]
+        token_ids = torch.as_tensor(self.store.get_ids(toks),
+                                    device=self.store.device)
+        gids, gmask = self._target_ids(list(group_tokens))
+        luts = lut.build_luts(pq._rotate(self.store.vectors_norm[gids]),
+                              pq.codebook.centroids)        # (G, m, k)
+        dists = pq.adc_in(luts, token_ids)                   # (G, T)
+        dists = torch.where(gmask[:, None], dists, float("inf"))
+        best = gids[torch.argmin(dists, dim=0)].tolist()
+        return [(t, self.store.words[g]) for t, g in zip(toks, best)]
+
+    # ========================================================== clustering
+    def cluster(self, tokens: Sequence[str], k: int) -> list[tuple]:
+        """Generic clustering façade (sql:314-332) → [(word, cluster), …]."""
+        return getattr(self, self.dispatch["cluster"])(tokens, k)
+
+    def _generic_cluster(self, tokens: Sequence[str], k: int,
+                         join_fn: Callable, *, seed: int = 0,
+                         iters: int = 10) -> list[tuple]:
+        """k-means over a token set (``generic_cluster``, sql:1086-1170):
+        k random token vectors as the first centroids, then ``iters``
+        rounds of assignment through a kNN-join and centroids of ≤10
+        sampled members (with replacement, sql:1131-1151); an empty
+        cluster keeps its centroid; ids are 1-based. The draws and the
+        centroid updates run on the host with numpy's ``default_rng(seed)``,
+        as in the JAX engine; one (T,) assignment comes back per round."""
+        toks = [t for t in tokens if t in self.store]
+        vecs = self.store.vectors_for(toks).cpu().numpy()
+        rng = np.random.default_rng(seed)
+        centroids = vecs[rng.integers(0, len(toks), size=k)]
+        assign = np.zeros(len(toks), np.int64)
+        for it in range(iters):
+            d, i = join_fn(torch.as_tensor(centroids,
+                                           device=self.store.device),
+                           len(toks))
+            assign_new = _cluster_assign(d, i, len(toks)).cpu().numpy()
+            assign = np.where(assign_new >= 0, assign_new, assign)
+            if it < iters - 1:
+                for c in range(k):
+                    members = np.flatnonzero(assign == c)
+                    if len(members) == 0:
+                        continue
+                    sample = members[rng.integers(0, len(members), size=10)]
+                    centroids[c] = vecs[sample].mean(0)
+        return [(t, int(c) + 1) for t, c in zip(toks, assign)]
+
+    def _make_join_fn(self, impl: str, toks: list[str]):
+        """The assignment join of one clustering family: centroids (k, d)
+        and a width kk → (dists, token positions, −1 past the results)."""
+        dev = self.store.device
+        tids = torch.as_tensor(self.store.get_ids(toks), device=dev)
+
+        def exact_join(centroids: torch.Tensor, kk: int):
+            idx = ExactIndex(self.store.vectors_norm[tids],
+                             self.exact.compute_dtype)
+            return idx.search(vo.vec_normalize(centroids), kk)
+
+        def pq_join(centroids: torch.Tensor, kk: int):
+            pq = self._require(self.pq, "PQ")
+            d, i = pq.search_in(vo.vec_normalize(centroids), kk, tids)
+            return d, _globals_to_locals(i, tids)
+
+        def ivpq_join(centroids: torch.Tensor, kk: int):
+            ivpq = self._require(self.ivpq, "IVPQ")
+            p = self.params
+            d, i = ivpq.search_join(
+                vo.vec_normalize(centroids), kk, tids,
+                vectors=self.store.vectors_norm,
+                statistics=self._active_statistics(), alpha=p.alpha,
+                pvf=p.pvf, method=p.method, confidence=p.confidence,
+                long_codes_threshold=p.long_codes_threshold,
+                lut_dtype=p.pq_lut_dtype)
+            return d, _globals_to_locals(i, tids)
+
+        return {"exact": exact_join, "pq": pq_join, "ivpq": ivpq_join}[impl]
+
+    def _cluster_with(self, impl: str, tokens: Sequence[str], k: int
+                      ) -> list[tuple]:
+        toks = [t for t in tokens if t in self.store]
+        return self._generic_cluster(toks, k, self._make_join_fn(impl, toks))
+
+    def cluster_exact(self, tokens: Sequence[str], k: int) -> list[tuple]:
+        """(sql:1172-1182)"""
+        return self._cluster_with("exact", tokens, k)
+
+    def cluster_pq(self, tokens: Sequence[str], k: int) -> list[tuple]:
+        """(sql:1198-1209)"""
+        return self._cluster_with("pq", tokens, k)
+
+    def cluster_ivpq(self, tokens: Sequence[str], k: int) -> list[tuple]:
+        """(sql:1185-1196)"""
+        return self._cluster_with("ivpq", tokens, k)
+
+    # ============================================================ tokenize
+    def tokenize(self, text: str) -> np.ndarray | None:
+        """Normalized centroid of the known words' normalized vectors
+        (sql:1513-1524); None when no word is known (SQL NULL)."""
+        words = [w for w in text.split(" ") if w in self.store]
+        if not words:
+            return None
+        c = vo.centroid(self.store.vectors_for(words))
+        return vo.vec_normalize(c).cpu().numpy()
+
+    def tokenize_raw(self, text: str) -> np.ndarray | None:
+        """Unnormalized centroid of the known words' RAW vectors
+        (sql:1527-1536)."""
+        words = [w for w in text.split(" ") if w in self.store]
+        if not words:
+            return None
+        return vo.centroid(self.store.vectors_for(
+            words, normalized=False)).cpu().numpy()
+
     # ========================================================== statistics
     def create_statistics(self, name: str, domain_words: Sequence[str]
                           ) -> None:
@@ -534,6 +944,180 @@ class Freddy:
         self.statistics[name] = build_statistics(ivpq.cell_of, ids,
                                                  ivpq.num_cells)
         self.params.statistics_table = name
+
+    # ============================================================ autotune
+    def _tune_queries(self, rng: np.random.Generator, sample: int
+                      ) -> torch.Tensor:
+        n = self.store.size
+        sel = rng.choice(n, size=min(sample, n), replace=False)
+        return self.store.vectors_norm[torch.as_tensor(
+            sel, device=self.store.device)]
+
+    @staticmethod
+    def _install(report: list[dict], params: RuntimeParams,
+                 set_function) -> None:
+        """Mark and install the fastest candidate that meets the target,
+        else the one with the highest recall."""
+        ok = [r for r in report if r["meets_target"]]
+        best = ok[0] if ok else max(report, key=lambda r: r["recall"])
+        best["chosen"] = True
+        set_function(best["name"])
+        for p, v in best["params"].items():
+            setattr(params, p, v)
+
+    def autotune(self, *, target_recall: float = 0.9, k: int = 10,
+                 sample: int = 256, seed: int = 0,
+                 apply: bool = True) -> list[dict]:
+        """Measure every built kNN family on ``sample`` random store rows
+        and pick the fastest configuration meeting ``target_recall``
+        (recall@k against this engine's exact float32 scan). Candidates:
+        exact, PQ, PQ+PV (pvf 10, 20, 50, 100), IVFADC (w 1, 3, 5, 10),
+        IVFADC+PV, each through its batched core, timed by
+        ``benchutil.timeit``. ``apply=True`` installs the winner's
+        ``dispatch["knn"]`` and its pvf / w (engine-wide parameters, as in
+        the reference). Returns the report sorted fastest first: ``name``,
+        ``params``, ``recall``, ``seconds``, ``meets_target``, and
+        ``chosen`` on the installed winner (JAX api.py:1174-1245)."""
+        from postgres_word2vec_tpu_torch.evaluation.benchutil import (
+            recall_at_k, timeit)
+
+        q = self._tune_queries(np.random.default_rng(seed), sample)
+        _, gt = self.exact.search(q, k, approx=False)
+        gt_h = gt.cpu().numpy()
+
+        def measure(impl: str, **param_over):
+            saved = {p: getattr(self.params, p) for p in param_over}
+            for p, v in param_over.items():
+                setattr(self.params, p, v)
+            core = getattr(self, self._KNN_CORES[impl])
+            try:
+                dt, (_, ids) = timeit(lambda qq: core(qq, k), q)
+            finally:
+                for p, v in saved.items():
+                    setattr(self.params, p, v)
+            rec = float(recall_at_k(ids, gt_h))
+            return {"name": impl, "params": dict(param_over),
+                    "recall": rec, "seconds": dt,
+                    "meets_target": rec >= target_recall}
+
+        report = [measure("k_nearest_neighbour")]
+        if self.pq is not None:
+            report.append(measure("k_nearest_neighbour_pq"))
+            for pvf in (10, 20, 50, 100):
+                report.append(measure("k_nearest_neighbour_pq_pv", pvf=pvf))
+        if self.ivfadc is not None:
+            for w in (1, 3, 5, 10):
+                report.append(measure("k_nearest_neighbour_ivfadc", w=w))
+            report.append(measure("k_nearest_neighbour_ivfadc_pv",
+                                  w=self.params.w, pvf=self.params.pvf))
+        report.sort(key=lambda r: r["seconds"])
+        if apply:
+            self._install(report, self.params, self.set_knn_function)
+        return report
+
+    def autotune_join(self, *, target_recall: float = 0.9, k: int = 5,
+                      sample: int = 256, targets=None,
+                      target_sample: int = 10_000, seed: int = 0,
+                      alphas: Sequence[int] = (50, 100, 200, 400),
+                      pvfs: Sequence[int] = (10, 20),
+                      apply: bool = True) -> list[dict]:
+        """Sweep the IVPQ join's alpha / pvf / method grid against in-set
+        exact ground truth and pick the fastest configuration meeting
+        ``target_recall`` (evaluation/time_precision_eval.py:49's knobs;
+        JAX api.py:1247-1339). ``targets``: the target set (words or ids),
+        or None for ``target_sample`` random store rows. The sweep runs on
+        one :meth:`models.ivpq.IVPQIndex.prepare_join` handle, as a
+        repeated target set is served. Candidates: method 0 and method 2
+        (× ``pvfs``) at each alpha, method 1 at the largest, and the exact
+        join ``knn_search_in_batch``. ``apply=True`` sets alpha / pvf /
+        method and ``dispatch["knn_join"]``."""
+        from postgres_word2vec_tpu_torch.evaluation.benchutil import (
+            recall_at_k, timeit)
+
+        n = self.store.size
+        rng = np.random.default_rng(seed)
+        q = self._tune_queries(rng, sample)
+        if targets is None:
+            tids = torch.as_tensor(
+                np.sort(rng.choice(n, size=min(target_sample, n),
+                                   replace=False)), device=self.store.device)
+            tmask = torch.ones(tids.shape, dtype=torch.bool,
+                               device=tids.device)
+        else:
+            tids, tmask = self._target_ids(targets)
+        _, gt = self._exact_in_core(q, k, tids, tmask)
+        gt_h = gt.cpu().numpy()
+        report = []
+
+        def measure(name, fn, **params):
+            dt, (_, ids) = timeit(fn, q)
+            rec = float(recall_at_k(ids, gt_h))
+            report.append({"name": name, "params": params, "recall": rec,
+                           "seconds": dt,
+                           "meets_target": rec >= target_recall})
+
+        measure("knn_search_in_batch",
+                lambda qq: self._exact_in_core(qq, k, tids, tmask))
+        if self.ivpq is not None:
+            stats = self._active_statistics()
+            ph = self.ivpq.prepare_join(tids, target_mask=tmask,
+                                        vectors=self.store.vectors_norm)
+
+            def join(qq, **kw):
+                return self.ivpq.search_join(
+                    qq, k, prepared=ph, statistics=stats,
+                    confidence=self.params.confidence,
+                    long_codes_threshold=self.params.long_codes_threshold,
+                    lut_dtype=self.params.pq_lut_dtype, **kw)
+
+            for alpha in alphas:
+                measure("knn_in_ivpq_batch",
+                        lambda qq, a=alpha: join(qq, alpha=a, method=0),
+                        alpha=alpha, method=0)
+                for pvf in pvfs:
+                    measure("knn_in_ivpq_batch",
+                            lambda qq, a=alpha, p=pvf: join(
+                                qq, alpha=a, method=2, pvf=p),
+                            alpha=alpha, method=2, pvf=pvf)
+            measure("knn_in_ivpq_batch",
+                    lambda qq, a=max(alphas): join(qq, alpha=a, method=1),
+                    alpha=max(alphas), method=1)
+        report.sort(key=lambda r: r["seconds"])
+        if apply:
+            self._install(report, self.params, self.set_knn_join_function)
+        return report
+
+    def warmup(self, *, k: int = 5, join_targets: int = 1024,
+               query_chunk: int = 1024) -> None:
+        """Run one tiny query through each built index family's search
+        paths (serving cold-start hygiene, JAX api.py:1341-1375). On the
+        card the first call builds the kernels from source and fills the
+        per-table caches (the PQ transposed codes, the IVFADC tiles, K1's
+        TMA descriptor); ``pq_lut_dtype`` is honored, so an int8 engine
+        warms its int8 kernels."""
+        q = self.store.vectors_norm[:1]
+        self.exact.search(q, k)
+        tids = torch.arange(min(join_targets, self.store.size),
+                            device=self.store.device)
+        self.exact.search_in(q, k, tids)
+        if self.pq is not None:
+            self.pq.search(q, k, impl=self._pq_impl())
+            self.pq.search_pv(q, k, self.params.pvf, self.store.vectors_norm,
+                              impl=self._pq_impl(),
+                              shortlist=self.params.pv_shortlist)
+            self.pq.search_in(q, k, tids)
+        if self.ivfadc is not None:
+            self.ivfadc.search(q, k, w=self.params.w)
+            self.ivfadc.search_pv(q, k, self.params.pvf,
+                                  self.store.vectors_norm, w=self.params.w)
+        if self.ivpq is not None:
+            p = self.params
+            self.ivpq.search_join(
+                q, k, tids, vectors=self.store.vectors_norm,
+                statistics=self._active_statistics(), alpha=p.alpha,
+                pvf=p.pvf, method=p.method, confidence=p.confidence,
+                long_codes_threshold=p.long_codes_threshold,
+                query_chunk=query_chunk, lut_dtype=p.pq_lut_dtype)
 
     # ========================================================= persistence
     def save(self, directory) -> None:
@@ -669,23 +1253,35 @@ def _tokenize_terms_batch(vectors: torch.Tensor, vectors_norm: torch.Tensor,
         torch.as_tensor(seg, device=dev), len(id_lists))
 
 
-#: Methods of the JAX engine that later items of ROADMAP.md port. Each is
+def _cluster_assign(dists: torch.Tensor, ids: torch.Tensor,
+                    n_tokens: int) -> torch.Tensor:
+    """Each token's nearest centroid from the per-centroid join results
+    (k, kk) (JAX api.py:1532-1545): a scatter-min into a dense (k, T)
+    table, then the first argmin over k; a token no centroid's join
+    returned gets −1 (keep its previous cluster)."""
+    vals = torch.where(ids >= 0, dists.float(), float("inf"))
+    table = torch.full((dists.shape[0], n_tokens), float("inf"),
+                       device=dists.device)
+    table.scatter_reduce_(1, torch.clamp_min(ids, 0).long(), vals, "amin")
+    mins, best = torch.min(table, dim=0)
+    return torch.where(torch.isfinite(mins), best, -1)
+
+
+def _globals_to_locals(ids: torch.Tensor, tids: torch.Tensor
+                       ) -> torch.Tensor:
+    """Global row ids → their positions in ``tids`` (−1 passes through),
+    by binary search over the sorted target ids (JAX api.py:1548-1561)."""
+    sorted_t, order = torch.sort(tids, stable=True)
+    pos = torch.clamp_max(
+        torch.searchsorted(sorted_t, torch.clamp_min(ids, 0)),
+        sorted_t.shape[0] - 1)
+    hit = sorted_t[pos] == ids
+    return torch.where((ids >= 0) & hit, order[pos], -1)
+
+
+#: Methods of the JAX engine that a later item of ROADMAP.md ports. Each is
 #: present on :class:`Freddy` and raises ``NotImplementedError``.
-NOT_PORTED = {
-    **dict.fromkeys(
-        ("set_track_stages", "set_knn_in_function", "set_analogy_function",
-         "set_analogy_in_function", "set_groups_function",
-         "set_cluster_function", "knn_in", "knn_in_matrix", "knn_in_exact",
-         "knn_in_pq", "knn_in_pq_batch", "analogy", "analogy_in",
-         "analogy_3cosadd", "analogy_3cosadd_in", "analogy_3cosmul",
-         "analogy_pair_direction", "analogy_3cosadd_pq",
-         "analogy_3cosadd_in_pq", "analogy_3cosadd_ivfadc",
-         "analogy_3cosadd_in_ivpq", "groups", "grouping_func",
-         "grouping_func_pq", "cluster", "cluster_exact", "cluster_pq",
-         "cluster_ivpq", "tokenize", "tokenize_raw", "autotune",
-         "autotune_join", "warmup"), _ENGINE),
-    "enable_sharding": _SHARDING,
-}
+NOT_PORTED = {"enable_sharding": _SHARDING}
 
 
 def _not_ported(name: str, item: str):

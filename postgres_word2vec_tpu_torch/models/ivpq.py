@@ -24,16 +24,21 @@ prefix, and the join runs one of two rounds:
 
 Alpha escalation (``alpha += alpha`` until every query has k results,
 ivpq_search_in.c:639-684) is a host loop over rounds with per-query
-retirement. Ids are global store row ids throughout; methods 1 and 2 read
-raw rows from the store table by id, so no gathered copy of the target
-vectors is kept. ``lut_dtype="int8"`` runs the budget round's grouped ADC
-over int8 LUTs (K8). ``add`` is the online insert: multi-index assignment
-and the running-mean fine-codebook update.
+retirement. The tiles carry target positions, mapped to global store ids
+at the end; methods 1 and 2 read raw rows from the store table by global
+id, so no gathered copy of the target vectors is kept — or, for a handle
+prepared with ``vecs_pregathered=True``, from the caller's ``(T, d)``
+target matrix by position. Unprepared calls keep their tile layouts in a
+small LRU cache per index (:data:`IVPQIndex._JOIN_CACHE_CAP` target sets).
+``lut_dtype="int8"`` runs the budget round's grouped ADC over int8 LUTs
+(K8). ``add`` is the online insert: multi-index assignment and the
+running-mean fine-codebook update.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 import time
 from pathlib import Path
@@ -205,21 +210,30 @@ def _dense_adc(luts: torch.Tensor, codes_t: torch.Tensor) -> torch.Tensor:
     return adc.adc_distances(luts, codes_t.t())
 
 
-def _finish(dists: torch.Tensor, ids_of, queries: torch.Tensor,
-            vectors: torch.Tensor | None, k: int, pvf: int, method: int
+def _finish(dists: torch.Tensor, pos_of, target_ids: torch.Tensor,
+            queries: torch.Tensor, vectors: torch.Tensor | None,
+            pregathered: bool, k: int, pvf: int, method: int
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k of a round's (B, W) candidate distances → (vals, global int64
-    ids, −1 past the candidates). ``ids_of(pos)`` maps candidate columns
-    to global ids (−1 on padding). Method 2 takes k·pvf by ADC and re-ranks
-    them exactly against ``vectors``."""
+    ids, −1 past the candidates). ``pos_of(cols)`` maps candidate columns
+    to target positions (−1 on padding). Method 2 takes k·pvf by ADC and
+    re-ranks them exactly against ``vectors``: the store table by global
+    id, or a ``pregathered`` (T, d) target matrix by position."""
+    tids = target_ids.long()
+
+    def ids_of(p):
+        return torch.where(p >= 0, tids[torch.clamp_min(p, 0)], -1)
+
     if method == PQ_PV_CALC:
         cvals, cpos = topk_ops.top_k_smallest(dists,
                                               min(k * pvf, dists.shape[1]))
-        cids = torch.where(torch.isfinite(cvals), ids_of(cpos), -1)
-        return adc.post_verify(queries, cids, cvals, vectors, k)
+        p = torch.where(torch.isfinite(cvals), pos_of(cpos), -1)
+        vals, rows = adc.post_verify(queries, p if pregathered else ids_of(p),
+                                     cvals, vectors, k)
+        return vals, ids_of(rows) if pregathered else rows
     k_eff = min(k, dists.shape[1])
     vals, pos = topk_ops.top_k_smallest(dists, k_eff)
-    ids = torch.where(torch.isfinite(vals), ids_of(pos), -1)
+    ids = torch.where(torch.isfinite(vals), ids_of(pos_of(pos)), -1)
     if k_eff < k:
         vals = F.pad(vals, (0, k - k_eff), value=float("inf"))
         ids = F.pad(ids, (0, k - k_eff), value=-1)
@@ -232,14 +246,14 @@ def _ivpq_round(queries: torch.Tensor, coarse_centroids: torch.Tensor,
                 target_cells: torch.Tensor, target_ids: torch.Tensor,
                 target_mask: torch.Tensor, statistics: torch.Tensor,
                 vectors: torch.Tensor | None, k: int, alpha: int, pvf: int,
-                method: int, confidence: float, use_double: bool
-                ) -> tuple[torch.Tensor, ...]:
+                method: int, confidence: float, use_double: bool,
+                pregathered: bool) -> tuple[torch.Tensor, ...]:
     """One dense probe round: every target scored, masked to each query's
     selected cells → (sqdists (B, k), global ids (B, k), retrieved (B,)
     real candidates, exhausted (B,) probed every cell, predicted (B,)).
     ``codes_t`` is the (m, T) target code table, fused-pair codes when
     ``use_double`` (:meth:`PreparedJoin.codes_t`); the exact method reads
-    ``vectors`` instead."""
+    ``vectors`` instead, by global id or, ``pregathered``, by position."""
     B = queries.shape[0]
     num_cells = statistics.shape[0] - 1
     cells = target_cells.long()
@@ -257,7 +271,8 @@ def _ivpq_round(queries: torch.Tensor, coarse_centroids: torch.Tensor,
 
     if method == EXACT_CALC:
         q = queries.float()
-        tv = vectors[torch.clamp_min(target_ids.long(), 0)].float()
+        tv = (vectors if pregathered
+              else vectors[torch.clamp_min(target_ids.long(), 0)]).float()
         dists = torch.clamp_min(
             torch.sum(q * q, -1, keepdim=True) - 2.0 * (q @ tv.t())
             + torch.sum(tv * tv, -1)[None], 0.0)
@@ -268,9 +283,8 @@ def _ivpq_round(queries: torch.Tensor, coarse_centroids: torch.Tensor,
             luts = lut.build_double_luts(luts)
         dists = _dense_adc(luts, codes_t)
     dists = torch.where(cand, dists, float("inf"))
-    tids = target_ids.long()
-    vals, ids = _finish(dists, lambda pos: tids[pos], queries, vectors, k,
-                        pvf, method)
+    vals, ids = _finish(dists, lambda pos: pos, target_ids, queries, vectors,
+                        pregathered, k, pvf, method)
     return vals, ids, retrieved, exhausted, predicted
 
 
@@ -283,7 +297,7 @@ class JoinTiles(NamedTuple):
     block_t: int
     codes_t: torch.Tensor      # (m, NA) aligned codes, storage dtype
     rowterm: torch.Tensor      # (NA,) float32: 0 on real rows, +inf padding
-    row_ids: torch.Tensor      # (NA,) int64 global row ids, −1 padding
+    local_ids: torch.Tensor    # (NA,) int64 target positions, −1 padding
     tile_start: torch.Tensor   # (C,) int64
     tile_cnt: torch.Tensor     # (C,) int64
     tile_rows: torch.Tensor    # (NT,) int64 real rows per tile
@@ -304,14 +318,16 @@ class JoinTiles(NamedTuple):
 
 
 def build_join_tiles(target_codes: torch.Tensor, target_cells: torch.Tensor,
-                     target_mask: torch.Tensor, target_ids: torch.Tensor,
+                     target_mask: torch.Tensor,
+                     vec_rows: torch.Tensor | None,
                      vectors: torch.Tensor | None, *, block_t: int,
                      num_cells: int, with_vecs: bool,
                      chunk_rows: int = 262144) -> JoinTiles:
     """Sort the targets by coarse cell and lay them out cell-aligned in
     whole ``block_t`` tiles. ``with_vecs`` also lays out the raw rows
-    (``vectors[target_ids]``, bf16, D = d rounded up to 8) with float32
-    norms for the exact method, gathered in row chunks."""
+    (``vectors[vec_rows]``, bf16, D = d rounded up to 8) with float32
+    norms for the exact method, gathered in row chunks; ``vec_rows`` None
+    reads row t for target t (a pregathered matrix)."""
     T, m = target_codes.shape
     bt = block_t
     dev = target_codes.device
@@ -335,8 +351,8 @@ def build_join_tiles(target_codes: torch.Tensor, target_cells: torch.Tensor,
     codes_t[:, apos] = target_codes[order].t()
     rowterm = torch.full((na,), float("inf"), device=dev)
     rowterm[apos] = torch.where(valid_s, 0.0, float("inf"))
-    row_ids = torch.full((na,), -1, dtype=torch.int64, device=dev)
-    row_ids[apos] = torch.where(valid_s, target_ids[order].long(), -1)
+    local_ids = torch.full((na,), -1, dtype=torch.int64, device=dev)
+    local_ids[apos] = torch.where(valid_s, order, -1)
     tile_rows = torch.zeros(nt, dtype=torch.int64, device=dev).index_add_(
         0, torch.where(valid_s, apos // bt, nt - 1), valid_s.long())
 
@@ -349,12 +365,14 @@ def build_join_tiles(target_codes: torch.Tensor, target_cells: torch.Tensor,
         for s in range(0, T, chunk_rows):
             keep = valid_s[s:s + chunk_rows]
             rows = apos[s:s + chunk_rows][keep]
-            vf = vectors[target_ids[order[s:s + chunk_rows]][keep].long()
-                         ].float()
+            src = order[s:s + chunk_rows][keep]
+            if vec_rows is not None:
+                src = vec_rows[src].long()
+            vf = vectors[src].float()
             vecs[rows, :d] = vf.to(torch.bfloat16)
             rownorm[rows] = torch.sum(vf * vf, dim=-1)
     return JoinTiles(
-        block_t=bt, codes_t=codes_t, rowterm=rowterm, row_ids=row_ids,
+        block_t=bt, codes_t=codes_t, rowterm=rowterm, local_ids=local_ids,
         tile_start=tile_start, tile_cnt=tile_cnt, tile_rows=tile_rows,
         cell_sizes=sizes.float(), t_real=target_mask.sum(), vecs=vecs,
         rownorm=rownorm, inf_tile=nt - 1, cache={})
@@ -384,12 +402,14 @@ def _ivpq_round_budget(queries: torch.Tensor, coarse_centroids: torch.Tensor,
                        vectors: torch.Tensor | None,
                        statistics: torch.Tensor, k: int, alpha: int,
                        pvf: int, method: int, confidence: float,
-                       use_double: bool, p_budget: int,
-                       lut_dtype: str = "bf16") -> tuple[torch.Tensor, ...]:
+                       use_double: bool, p_budget: int, lut_dtype: str,
+                       target_ids: torch.Tensor, pregathered: bool
+                       ) -> tuple[torch.Tensor, ...]:
     """One selectivity-proportional round: each query scans the tiles of
     its selected cells, at most ``p_budget`` of them. Same return contract
-    as :func:`_ivpq_round`; ``retrieved`` counts rows actually scanned, so
-    a query cut short by the budget is never wrongly retired."""
+    as :func:`_ivpq_round` (``target_ids`` maps target positions to global
+    ids); ``retrieved`` counts rows actually scanned, so a query cut short
+    by the budget is never wrongly retired."""
     bt = jt.block_t
     tiles, exhausted, predicted, retrieved_sel = probe_tiles(
         queries, coarse_centroids, statistics, jt, k, alpha, confidence,
@@ -413,9 +433,9 @@ def _ivpq_round_budget(queries: torch.Tensor, coarse_centroids: torch.Tensor,
     found = torch.sum(jt.tile_rows[tiles.long()], dim=1)
     exhausted = exhausted & (found.float() >= retrieved_sel)
     gpos = adc.tile_positions(tiles, bt)
-    vals, ids = _finish(dists, lambda pos: jt.row_ids[torch.gather(gpos, 1,
-                                                                   pos)],
-                        queries, vectors, k, pvf, method)
+    vals, ids = _finish(
+        dists, lambda pos: jt.local_ids[torch.gather(gpos, 1, pos)],
+        target_ids, queries, vectors, pregathered, k, pvf, method)
     return vals, ids, found, exhausted, predicted
 
 
@@ -424,18 +444,20 @@ class PreparedJoin:
     """Reusable target-set handle for repeated kNN-joins (the reference's
     statistics-table serving pattern, sql:150-171): the target code and
     cell gathers, and lazily each tile layout, are paid once.
-    ``vectors`` is the store table the target ids index (methods 1 and 2
-    read raw rows from it); ``tiles(with_vecs=True)`` lays those rows out
-    for the exact method."""
+    ``vectors`` is the store table the target ids index, or with
+    ``vecs_pregathered`` the ``(T, d)`` target rows in target order, aliased
+    (methods 1 and 2 read raw rows from it); ``tiles(with_vecs=True)`` lays
+    those rows out for the exact method."""
 
     target_ids: torch.Tensor            # (T,) int64 global ids
     target_mask: torch.Tensor           # (T,) bool
     target_codes: torch.Tensor          # (T, m) storage dtype
     target_cells: torch.Tensor          # (T,) int64
-    vectors: torch.Tensor | None        # (N, d) store table, or None
+    vectors: torch.Tensor | None        # (N, d) store table, (T, d), None
     num_cells: int
     block_t: int
     build_s: float                      # host seconds spent preparing
+    vecs_pregathered: bool = False      # vectors row t is target t
     _tiles: dict = dataclasses.field(default_factory=dict, repr=False)
     _codes_t: dict = dataclasses.field(default_factory=dict, repr=False)
 
@@ -450,7 +472,9 @@ class PreparedJoin:
                 raise ValueError("prepare_join was called without vectors — "
                                  "method=1 (exact distances) needs raw rows")
             jt = build_join_tiles(self.target_codes, self.target_cells,
-                                  self.target_mask, self.target_ids,
+                                  self.target_mask,
+                                  None if self.vecs_pregathered
+                                  else self.target_ids,
                                   self.vectors, block_t=self.block_t,
                                   num_cells=self.num_cells,
                                   with_vecs=bool(with_vecs))
@@ -509,6 +533,13 @@ class IVPQIndex:
     codes: torch.Tensor         # (n, m) uint8, original row order
     cell_of: torch.Tensor       # (n,) int64 coarse cell per row
 
+    #: Tile layouts of unprepared ``search_join`` calls, LRU, keyed by
+    #: :meth:`_join_tiles_key`. ``add`` returns a new index, so an insert
+    #: starts an empty cache.
+    _join_cache: dict = dataclasses.field(default_factory=dict, repr=False,
+                                          compare=False)
+    _JOIN_CACHE_CAP = 4
+
     @property
     def size(self) -> int:
         return int(self.codes.shape[0])
@@ -545,13 +576,22 @@ class IVPQIndex:
                      target_mask: torch.Tensor | None = None,
                      vectors: torch.Tensor | None = None,
                      block_t: int | None = None,
-                     with_tiles: bool = True) -> PreparedJoin:
+                     with_tiles: bool = True,
+                     vecs_pregathered: bool = False) -> PreparedJoin:
         """A :class:`PreparedJoin` for a target set: the code and cell
         gathers, and (``with_tiles``) the ADC tile layout, paid once.
         ``vectors`` is the store table (needed by methods 1 and 2).
+        ``vecs_pregathered=True`` declares ``vectors`` to be the ``(T, d)``
+        target rows already, aligned with ``target_ids`` (the whole store
+        when the targets are every row in order): the handle aliases it and
+        reads it by target position (JAX ivpq.py:778-831).
         ``block_t`` defaults to 256 from 50k targets up, else 128."""
         dev = self.codes.device
         tids = torch.as_tensor(target_ids, device=dev).long()
+        if vecs_pregathered and (vectors is None
+                                 or vectors.shape[0] != tids.shape[0]):
+            raise ValueError("vecs_pregathered=True needs vectors with one "
+                             "row per target id")
         if target_mask is None:
             target_mask = torch.ones(tids.shape, dtype=torch.bool, device=dev)
         bt = block_t or (256 if tids.shape[0] >= 50_000 else 128)
@@ -561,7 +601,8 @@ class IVPQIndex:
                           target_codes=self.codes[safe],
                           target_cells=self.cell_of[safe].long(),
                           vectors=vectors, num_cells=self.num_cells,
-                          block_t=bt, build_s=0.0)
+                          block_t=bt, build_s=0.0,
+                          vecs_pregathered=vecs_pregathered)
         if with_tiles:
             ph.tiles(with_vecs=False).t_real.item()     # wait for the build
         ph.build_s = time.perf_counter() - t0
@@ -584,7 +625,10 @@ class IVPQIndex:
 
         ``prepared``: a :meth:`prepare_join` handle (its targets and
         vectors are used); otherwise ``target_ids``/``target_mask``/
-        ``vectors`` are prepared for this call. ``impl``: "budget" (the
+        ``vectors`` are prepared for this call, and the budget round's tile
+        layout comes from the index's LRU cache when this target set was
+        tiled before (a hit reports ``data_retrieval_s`` 0, as in the JAX
+        package). ``impl``: "budget" (the
         tiled probe; default on the card), "dense" (all targets, masked;
         default on the CPU), or None; ``use_targetlists=False`` forces
         "dense". ``query_chunk`` queries per host chunk (default 8192
@@ -597,7 +641,8 @@ class IVPQIndex:
             raise ValueError(f"lut_dtype must be 'bf16' or 'int8', "
                              f"got {lut_dtype!r}")
         data_retrieval_s = 0.0
-        if prepared is None:
+        adhoc = prepared is None
+        if adhoc:
             if target_ids is None:
                 raise ValueError("search_join needs target_ids or prepared=")
             prepared = self.prepare_join(target_ids, target_mask=target_mask,
@@ -618,7 +663,10 @@ class IVPQIndex:
         if query_chunk is None:
             query_chunk = 8192 if impl == "budget" else 1024
         jt = None
-        if impl == "budget":
+        if impl == "budget" and adhoc:
+            jt, data_retrieval_s = self._cached_tiles(prepared,
+                                                      method == EXACT_CALC)
+        elif impl == "budget":
             t0 = time.perf_counter()
             built = (method == EXACT_CALC) not in prepared._tiles
             jt = prepared.tiles(with_vecs=method == EXACT_CALC)
@@ -642,6 +690,48 @@ class IVPQIndex:
                     final_alpha=max(o[2]["final_alpha"] for o in outs),
                     data_retrieval_s=data_retrieval_s)
         return vals, ids, info
+
+    @staticmethod
+    def _join_tiles_key(target_ids: torch.Tensor, target_mask: torch.Tensor,
+                        block_t: int, with_vecs: bool,
+                        vectors: torch.Tensor | None) -> tuple:
+        """Cache key of an unprepared call's tile layout: a content digest
+        of the target set (one host copy of T ids and T mask bytes) and
+        the layout parameters (JAX ivpq.py:1049-1064). Layouts with raw
+        rows also key on the table: its identity, version counter, storage
+        and shape, since a torch tensor can change in place (an in-place
+        write bumps ``_version``; a grown store is a new tensor)."""
+        h = hashlib.blake2b(digest_size=16)
+        h.update(target_ids.detach().cpu().numpy().tobytes())
+        h.update(target_mask.detach().cpu().numpy().tobytes())
+        vec_key = None
+        if with_vecs:
+            vec_key = (id(vectors), vectors._version, vectors.data_ptr(),
+                       tuple(vectors.shape))
+        return h.hexdigest(), block_t, with_vecs, vec_key
+
+    def _cached_tiles(self, prepared: PreparedJoin, with_vecs: bool
+                      ) -> tuple[JoinTiles, float]:
+        """An unprepared call's tile layout from the LRU cache, or built,
+        timed and cached (evicting the least recently used of
+        :data:`_JOIN_CACHE_CAP`) → (tiles, data-retrieval seconds, 0 on a
+        hit). An entry pins its table, so the table's ``id`` cannot be
+        reused while the entry lives."""
+        key = self._join_tiles_key(prepared.target_ids, prepared.target_mask,
+                                   prepared.block_t, with_vecs,
+                                   prepared.vectors)
+        hit = self._join_cache.pop(key, None)
+        if hit is not None:
+            self._join_cache[key] = hit           # most recently used last
+            return hit[0], 0.0
+        t0 = time.perf_counter()
+        jt = prepared.tiles(with_vecs=with_vecs)
+        jt.t_real.item()                          # wait for the build
+        seconds = time.perf_counter() - t0
+        if len(self._join_cache) >= self._JOIN_CACHE_CAP:
+            self._join_cache.pop(next(iter(self._join_cache)))
+        self._join_cache[key] = (jt, prepared.vectors if with_vecs else None)
+        return jt, seconds
 
     def _join_round1(self, queries: torch.Tensor, call: _JoinCall,
                      alpha: int) -> dict:
@@ -699,12 +789,14 @@ class IVPQIndex:
                 queries, self.coarse.centroids, self.codebook.centroids,
                 codes_t, ph.target_cells, ph.target_ids, ph.target_mask,
                 call.statistics, ph.vectors, call.k, alpha, call.pvf,
-                call.method, call.confidence, use_double)
+                call.method, call.confidence, use_double,
+                ph.vecs_pregathered)
         p = self._budget_for(call.jt, call.k, alpha, call.budget_tiles)
         outs = [_ivpq_round_budget(
             qb, self.coarse.centroids, self.codebook.centroids, call.jt,
             ph.vectors, call.statistics, call.k, alpha, call.pvf,
-            call.method, call.confidence, use_double, p, call.lut_dtype)
+            call.method, call.confidence, use_double, p, call.lut_dtype,
+            ph.target_ids, ph.vecs_pregathered)
             for qb in torch.split(queries, _BUDGET_SCAN_BLOCK)]
         return tuple(torch.cat(parts) for parts in zip(*outs))
 

@@ -10,10 +10,12 @@ On a CUDA device the exhaustive scan runs through the hand-written scan
 kernels (``ops/kernels.py``: K2 dense, K4 binned, and over int8 LUTs K3
 dense, K5 binned) over a cached subspace-major ``(m, N)`` code layout; on
 the CPU it runs the plain chunked gather (``ops/adc.py``), or for the int8
-modes the kernels' plain versions. Online insert (:meth:`PQIndex.add`)
+modes the kernels' plain versions. The in-set search
+(:meth:`PQIndex.search_in`) gathers the targets' columns of that layout
+into a contiguous ``(m, T)`` table and scores it with K2 on the card; on
+the CPU it runs the plain gather. Online insert (:meth:`PQIndex.add`)
 runs the reference's sequential running-mean codebook update
-(:func:`online_codebook_update`). ``search_in`` is not ported yet and
-raises ``NotImplementedError``.
+(:func:`online_codebook_update`).
 """
 
 from __future__ import annotations
@@ -29,8 +31,6 @@ import torch
 from postgres_word2vec_tpu_torch.ops import adc, kmeans, lut
 from postgres_word2vec_tpu_torch.ops import kernels
 from postgres_word2vec_tpu_torch.ops.vector_ops import no_tf32
-
-_NOT_YET = "arrives with ROADMAP.md queue 1, item 8 (engine: in-set kNN)"
 
 
 class PQCodebook(NamedTuple):
@@ -358,8 +358,38 @@ class PQIndex:
                                   valid_n)
         return adc.post_verify(queries, ci, cd, vectors, k)
 
-    def search_in(self, queries, k, target_ids, target_mask=None):
-        raise NotImplementedError(f"PQIndex.search_in {_NOT_YET}")
+    def adc_in(self, luts: torch.Tensor, target_ids: torch.Tensor
+               ) -> torch.Tensor:
+        """ADC distances of ``(B, m, k)`` float32 LUTs over a target id set
+        → ``(B, T)`` float32 (ids < 0 read row 0; the caller masks them).
+        On the card: the targets' columns of :meth:`transposed_codes`
+        gathered into a contiguous ``(m, T)`` table, scored by K2; on the
+        CPU: the plain gather (``adc.adc_distances``)."""
+        safe = torch.clamp_min(target_ids.long(), 0)
+        if not self.codes.is_cuda:
+            return adc.adc_distances(luts, self.codes[safe])
+        table = self.transposed_codes().index_select(1, safe)
+        return kernels.adc_scan(luts, table)
+
+    def search_in(self, queries: torch.Tensor, k: int,
+                  target_ids: torch.Tensor,
+                  target_mask: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Target-restricted ADC top-k (``pq_search_in`` /
+        ``pq_search_in_batch`` parity, the kNN-join baseline; JAX
+        pq.py:534-541) → (sqdists, global int64 ids), −1 and +inf past the
+        real targets. Float32 LUTs whatever the engine's ``pq_lut_dtype``,
+        as in the JAX package. On the card the targets' codes are scored
+        by K2 (:meth:`adc_in`); on the CPU by ``adc.adc_top_k_in``."""
+        if target_mask is None:
+            target_mask = torch.ones(target_ids.shape, dtype=torch.bool,
+                                     device=target_ids.device)
+        luts = lut.build_luts(self._rotate(queries), self.codebook.centroids)
+        if not self.codes.is_cuda:
+            return adc.adc_top_k_in(luts, self.codes, target_ids,
+                                    target_mask, k)
+        return adc.top_k_in(self.adc_in(luts, target_ids), target_ids,
+                            target_mask, k)
 
     def add(self, new_vectors: torch.Tensor) -> "PQIndex":
         """Online insert: running-mean codebook update in the index's (OPQ)

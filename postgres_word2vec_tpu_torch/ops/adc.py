@@ -121,16 +121,15 @@ def budget_exact_xla(queries: torch.Tensor, vecs_aligned: torch.Tensor,
     return out
 
 
-def adc_top_k_in(luts: torch.Tensor, codes: torch.Tensor,
-                 target_ids: torch.Tensor, target_mask: torch.Tensor,
-                 k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """ADC top-k restricted to a padded target id set → ``(B, k)`` (dists,
-    global int64 ids); padding slots score +inf and surface as id −1 only
-    when fewer than k real targets exist (``pq_search_in``,
-    freddy.c:1026-1174)."""
+def top_k_in(dists: torch.Tensor, target_ids: torch.Tensor,
+             target_mask: torch.Tensor, k: int
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of ``(B, T)`` in-set distances → ``(B, k)`` (dists, global
+    int64 ids): masked slots score +inf, and ids are −1 with +inf past the
+    real targets (``pq_search_in``, freddy.c:1026-1174)."""
     tids = target_ids.long()
-    d = adc_distances(luts, codes[torch.clamp_min(tids, 0)])
-    d = torch.where(target_mask[None, :], d, torch.full_like(d, float("inf")))
+    d = torch.where(target_mask[None, :], dists,
+                    torch.full_like(dists, float("inf")))
     k_eff = min(k, tids.shape[0])
     vals, pos = topk_ops.top_k_smallest(d, k_eff)
     ids = torch.where(torch.isfinite(vals), tids[pos],
@@ -140,6 +139,17 @@ def adc_top_k_in(luts: torch.Tensor, codes: torch.Tensor,
                                        value=float("inf"))
         ids = torch.nn.functional.pad(ids, (0, k - k_eff), value=-1)
     return vals, ids
+
+
+def adc_top_k_in(luts: torch.Tensor, codes: torch.Tensor,
+                 target_ids: torch.Tensor, target_mask: torch.Tensor,
+                 k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """ADC top-k restricted to a padded target id set → ``(B, k)`` (dists,
+    global int64 ids); padding slots score +inf and surface as id −1 only
+    when fewer than k real targets exist (``pq_search_in``,
+    freddy.c:1026-1174)."""
+    d = adc_distances(luts, codes[torch.clamp_min(target_ids.long(), 0)])
+    return top_k_in(d, target_ids, target_mask, k)
 
 
 def adc_top_k(luts: torch.Tensor, codes: torch.Tensor, k: int, *,

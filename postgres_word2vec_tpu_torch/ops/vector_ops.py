@@ -1,9 +1,11 @@
 """Small-vector algebra of the reference's SQL layer, on torch tensors.
 
-Counterpart of ``postgres_word2vec_tpu/ops/vector_ops.py`` for the ops the
-search path needs: L2 normalisation (``vec_normalize``,
-core_functions.c:211-243) and the squared-distance ↔ cosine maps of the
-ADC paths (freddy--0.0.1.sql:511,526,547). Accumulation is float32.
+Counterpart of ``postgres_word2vec_tpu/ops/vector_ops.py``: the
+reference's scalar C functions (core_functions.c:23-383,
+cosine_similarity.c:12-45) — cosine similarity, full and dot-only; vector
+plus, minus and normalize; centroid; squared L2 — batched over leading
+axes, and the squared-distance ↔ cosine maps of the ADC paths
+(freddy--0.0.1.sql:511,526,547). Accumulation is float32.
 """
 
 from __future__ import annotations
@@ -29,11 +31,50 @@ def no_tf32():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+def cosine_similarity(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Full cosine similarity along the last axis, both sides normalized
+    (``cosine_similarity``, core_functions.c:23-42)."""
+    a, b = a.float(), b.float()
+    na = torch.sqrt(torch.sum(a * a, dim=-1))
+    nb = torch.sqrt(torch.sum(b * b, dim=-1))
+    return torch.sum(a * b, dim=-1) / torch.clamp_min(na * nb, _EPS)
+
+
+def cosine_similarity_norm(a: torch.Tensor, b: torch.Tensor
+                           ) -> torch.Tensor:
+    """Dot product only, for normalized inputs
+    (``cosine_similarity_norm``, core_functions.c:44-81)."""
+    return torch.sum(a.float() * b.float(), dim=-1)
+
+
+def vec_plus(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``vec_plus`` (core_functions.c:146-178)."""
+    return a + b
+
+
+def vec_minus(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``vec_minus`` (core_functions.c:83-115)."""
+    return a - b
+
+
 def vec_normalize(a: torch.Tensor) -> torch.Tensor:
     """L2-normalize along the last axis (float32 result)."""
     a = a.float()
     norm = torch.sqrt(torch.sum(a * a, dim=-1, keepdim=True))
     return a / torch.clamp_min(norm, _EPS)
+
+
+def centroid(vectors: torch.Tensor) -> torch.Tensor:
+    """Mean over the second-to-last axis, ``(..., n, d) → (..., d)``
+    (``centroid``, core_functions.c:271-383)."""
+    return torch.mean(vectors.float(), dim=-2)
+
+
+def squared_l2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Squared L2 distance along the last axis (``squareDistance``,
+    index_utils.c:500-508)."""
+    d = a.float() - b.float()
+    return torch.sum(d * d, dim=-1)
 
 
 def row_sqnorms(x: torch.Tensor, *, chunk_rows: int = 262144

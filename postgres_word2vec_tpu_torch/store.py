@@ -58,14 +58,32 @@ class VectorStore:
 
     @classmethod
     def from_text_file(cls, path: str | Path, max_words: int | None = None,
-                       *, device: torch.device | str | None = None
+                       use_native: bool = True, *,
+                       device: torch.device | str | None = None
                        ) -> "VectorStore":
         """Parse word2vec text format (header line ``N d``, then
-        ``word v1 … vd`` rows) — parity with index_utils.py:8-40, numpy
-        parser only. On the card unless ``device`` names another; the
+        ``word v1 … vd`` rows) — parity with index_utils.py:8-40. The C++
+        parser (native/fastio.cpp) when ``use_native`` and it builds,
+        else numpy. On the card unless ``device`` names another; the
         device is resolved before the file is read."""
         device = resolve_device(device)
-        words, vecs = _load_text_embeddings(Path(path), max_words)
+        words, vecs = _load_text_embeddings(Path(path), max_words,
+                                            use_native=use_native)
+        return cls.from_arrays(words, vecs, device=device)
+
+    @classmethod
+    def from_binary_file(cls, path: str | Path,
+                         max_words: int | None = None, *,
+                         device: torch.device | str | None = None
+                         ) -> "VectorStore":
+        """Load word2vec .bin format through the native parser (JAX
+        store.py:101-109; replaces the reference's gensim conversion,
+        transform_vecs.py:1-9). On the card unless ``device`` names
+        another, resolved before the file is read."""
+        from postgres_word2vec_tpu_torch.utils import native_io
+
+        device = resolve_device(device)
+        words, vecs = native_io.load_binary_embeddings(Path(path), max_words)
         return cls.from_arrays(words, vecs, device=device)
 
     # ------------------------------------------------------------- lookups
@@ -97,6 +115,11 @@ class VectorStore:
         if strict:
             return [self.word_to_id[w] for w in words]
         return [self.word_to_id[w] for w in words if w in self.word_to_id]
+
+    def get_words(self, ids: Iterable[int]) -> list[str]:
+        """Map ids → words, "" for an id outside the store."""
+        n = len(self.words)
+        return [self.words[i] if 0 <= i < n else "" for i in ids]
 
     def vector_for(self, word: str, *, normalized: bool = True
                    ) -> torch.Tensor:
@@ -181,8 +204,22 @@ class VectorStore:
 
 # ---------------------------------------------------------------- parsing
 
-def _load_text_embeddings(path: Path, max_words: int | None
+def _load_text_embeddings(path: Path, max_words: int | None,
+                          use_native: bool = True
                           ) -> tuple[list[str], np.ndarray]:
+    """The native parser when asked for and it works (JAX
+    store.py:226-235), else :func:`_load_text_embeddings_py`."""
+    if use_native:
+        try:
+            from postgres_word2vec_tpu_torch.utils import native_io
+            return native_io.load_text_embeddings(path, max_words)
+        except Exception:
+            pass  # fall back to the numpy parser
+    return _load_text_embeddings_py(path, max_words)
+
+
+def _load_text_embeddings_py(path: Path, max_words: int | None
+                             ) -> tuple[list[str], np.ndarray]:
     words: list[str] = []
     rows: list[np.ndarray] = []
     with open(path, "r", encoding="utf-8", errors="replace") as f:

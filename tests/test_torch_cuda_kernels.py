@@ -1270,3 +1270,108 @@ def test_exact_int8_on_cuda_matches_cpu():
     grown = gpu.extended(gpu.vectors, torch.as_tensor(q, device="cuda"))
     d_e, i_e = grown.search(torch.as_tensor(q, device="cuda"), 2)
     assert set(i_e[:, :2].flatten().tolist()) >= set(range(5003, 5010))
+
+
+# ------------------------------------------------ slice 9: K2's new sites
+
+@pytest.mark.parametrize("T", (1, 2, 3, 17, 255, 1000, 4097))
+@pytest.mark.parametrize("m,k,dtype", DENSE_BOOKS)
+def test_adc_scan_on_gathered_target_columns_matches_plain(T, m, k, dtype):
+    """``PQIndex.search_in``'s table: a target set's columns gathered from
+    the (m, N) layout, T not a multiple of any block."""
+    luts, codes_t = _adc_inputs(T + m, 5, m, k, 9000, dtype)
+    g = torch.Generator(device="cuda").manual_seed(T)
+    tids = torch.randint(0, 9000, (T,), generator=g, device="cuda")
+    table = codes_t.index_select(1, tids)
+    assert table.is_contiguous() and table.shape == (m, T)
+    before = kernels.KERNELS["adc_scan"].launches
+    got = kernels.adc_scan(luts, table)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["adc_scan"].launches == before + 1
+    assert torch.equal(got, kernels.adc_scan_plain(luts, table))
+
+
+@pytest.fixture(scope="module")
+def engine_dirs(tmp_path_factory):
+    """A small port engine (OPQ PQ, IVFADC, IVPQ) built on the CPU and
+    saved; the tests load it on the card and on the CPU."""
+    from postgres_word2vec_tpu_torch import Freddy, VectorStore
+
+    g = torch.Generator().manual_seed(9)
+    c = torch.randn(48, 48, generator=g)
+    x = c[torch.randint(0, 48, (6000,), generator=g)] + 0.6 * torch.randn(
+        6000, 48, generator=g)
+    store = VectorStore.from_arrays([f"w{i}" for i in range(6000)], x,
+                                    device="cpu")
+    eng = Freddy.build(store, pq_m=12, pq_k=16, ivfadc_m=12, ivfadc_k=16,
+                       k_coarse=24, ivpq_m=12, ivpq_k=16, ivpq_k_coarse=8,
+                       train_size=None, iters=4, opq_iters=2)
+    path = tmp_path_factory.mktemp("engine")
+    eng.save(path)
+    return path
+
+
+def _engines(path):
+    from postgres_word2vec_tpu_torch import Freddy
+    return Freddy.load(path, device="cuda"), Freddy.load(path, device="cpu")
+
+
+@pytest.mark.parametrize("k", (1, 5, 300))
+def test_pq_search_in_on_the_card_matches_the_cpu(engine_dirs, k):
+    from test_torch_parity_util import assert_same_top_k
+
+    gpu, cpu = _engines(engine_dirs)
+    tids = torch.randperm(6000, generator=torch.Generator().manual_seed(k))
+    tids = tids[:257]
+    mask = torch.ones(257, dtype=torch.bool)
+    mask[5] = False
+    q = cpu.store.vectors_norm[10:30]
+    kernels.reset_launch_counts()
+    got = gpu.pq.search_in(q.cuda(), k, tids.cuda(), mask.cuda())
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["adc_scan"] == 1
+    want = cpu.pq.search_in(q, k, tids, mask)
+    assert_same_top_k(got[0], got[1], want[0], want[1], atol=1e-5)
+    assert not (got[1] == tids[5].cuda()).any()
+
+
+def test_knn_in_pq_batch_on_the_card_launches_k2_per_chunk(engine_dirs):
+    gpu, cpu = _engines(engine_dirs)
+    words = [f"w{i}" for i in range(0, 6000, 5)]        # 1200: 3 chunks
+    targets = [f"w{i}" for i in range(0, 6000, 3)]
+    kernels.reset_launch_counts()
+    got = gpu.knn_in_pq_batch(words, 3, targets)
+    assert kernels.launch_counts()["adc_scan"] == 3
+    want = cpu.knn_in_pq_batch(words, 3, targets)
+    agree = np.mean([a[1] == b[1] for a, b in zip(got, want)])
+    assert len(got) == len(want) and agree >= 0.99
+
+
+def test_grouping_func_pq_on_the_card_matches_the_cpu(engine_dirs):
+    gpu, cpu = _engines(engine_dirs)
+    toks = [f"w{i}" for i in range(0, 6000, 2)]
+    groups = [f"w{i}" for i in range(1, 6000, 300)]
+    kernels.reset_launch_counts()
+    got = gpu.grouping_func_pq(toks, groups)
+    assert kernels.launch_counts()["adc_scan"] == 1
+    want = cpu.grouping_func_pq(toks, groups)
+    assert [t for t, _ in got] == [t for t, _ in want] == toks
+    assert np.mean([a == b for a, b in zip(got, want)]) >= 0.99
+
+
+@pytest.mark.parametrize("method", (0, 1, 2))
+def test_pregathered_join_on_the_card_matches_the_cpu(engine_dirs, method):
+    from test_torch_parity_util import assert_same_top_k
+
+    gpu, cpu = _engines(engine_dirs)
+    tids = torch.randperm(6000, generator=torch.Generator().manual_seed(1))
+    tids = tids[:2500]
+    out = []
+    for eng in (gpu, cpu):
+        x = eng.store.vectors_norm
+        t = tids.to(x.device)
+        ph = eng.ivpq.prepare_join(t, vectors=x[t], vecs_pregathered=True)
+        out.append(eng.ivpq.search_join(x[:40], 5, prepared=ph, alpha=20,
+                                        method=method, pvf=4,
+                                        impl="budget"))
+    assert_same_top_k(out[0][0], out[0][1], out[1][0], out[1][1], atol=1e-4)

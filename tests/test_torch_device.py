@@ -14,12 +14,14 @@ import torch
 
 from postgres_word2vec_tpu import Freddy as JFreddy
 from postgres_word2vec_tpu import VectorStore as JStore
+from postgres_word2vec_tpu.utils import migrate as jmigrate
 
 from postgres_word2vec_tpu_torch import Freddy, PQIndex, VectorStore
 from postgres_word2vec_tpu_torch import api, store as store_mod
 from postgres_word2vec_tpu_torch.models.ivfadc import IVFADCIndex
 from postgres_word2vec_tpu_torch.models.ivpq import IVPQIndex
 from postgres_word2vec_tpu_torch.utils import convert, device as device_mod
+from postgres_word2vec_tpu_torch.utils import migrate
 from postgres_word2vec_tpu_torch.utils.device import resolve_device
 
 N, D = 512, 16
@@ -29,7 +31,8 @@ WORDS = [f"w{i}" for i in range(N)]
 @pytest.fixture(scope="module")
 def saved(tmp_path_factory):
     """A small JAX engine with every index family, saved, plus the same
-    store as a word2vec text file."""
+    store as word2vec text and binary files and, without its OPQ PQ index
+    (a dump cannot hold a rotation), as a FREDDY dump."""
     rng = np.random.default_rng(11)
     vecs = rng.normal(size=(N, D)).astype(np.float32)
     eng = JFreddy.build(JStore.from_arrays(WORDS, vecs), seed=0, pq_m=4,
@@ -42,6 +45,11 @@ def saved(tmp_path_factory):
     text.write_text(f"{N} {D}\n" + "".join(
         w + " " + " ".join(f"{x:.6f}" for x in row) + "\n"
         for w, row in zip(WORDS, vecs)))
+    (path / "vectors.bin").write_bytes(f"{N} {D}\n".encode() + b"".join(
+        w.encode() + b" " + row.tobytes() + b"\n"
+        for w, row in zip(WORDS, vecs)))
+    jmigrate.export_engine(JFreddy(eng.store, ivfadc=eng.ivfadc,
+                                   ivpq=eng.ivpq), path / "dump")
     return path, vecs
 
 
@@ -62,6 +70,10 @@ ENTRY_POINTS = {
     "from_text_file": (
         lambda p, v, **kw: VectorStore.from_text_file(p / "vectors.txt",
                                                       **kw),
+        lambda s: s.vectors),
+    "from_binary_file": (
+        lambda p, v, **kw: VectorStore.from_binary_file(p / "vectors.bin",
+                                                        **kw),
         lambda s: s.vectors),
     "VectorStore.load": (
         lambda p, v, **kw: VectorStore.load(p / "store.npz", **kw),
@@ -91,6 +103,9 @@ ENTRY_POINTS = {
     "Freddy.load": (
         lambda p, v, **kw: Freddy.load(p, **kw),
         lambda e: e.ivpq.codes),
+    "migrate.import_engine": (
+        lambda p, v, **kw: migrate.import_engine(p / "dump", **kw),
+        lambda e: e.ivfadc.codes_sorted),
 }
 
 
@@ -135,7 +150,7 @@ def test_entry_point_asks_for_the_card_by_default(saved, monkeypatch, name):
         asked.append(device_mod.resolve_device(device))
         return torch.device("cpu")
 
-    for mod in (store_mod, convert, api):
+    for mod in (store_mod, convert, api, migrate):
         monkeypatch.setattr(mod, "resolve_device", spy)
     call, tensor_of = ENTRY_POINTS[name]
     assert tensor_of(call(*saved)).device.type == "cpu"

@@ -23,8 +23,9 @@ def test_the_port_has_the_slice_modules():
                  "ops.lut", "ops.adc", "ops.kernels", "ops._build",
                  "models.exact", "models.pq", "models.ivfadc",
                  "models.ivpq", "utils.shapes",
-                 "utils.tracker", "utils.convert", "evaluation.synth",
-                 "evaluation.join_wall"):
+                 "utils.tracker", "utils.convert", "utils.codec",
+                 "utils.native_io", "utils.migrate", "evaluation.synth",
+                 "evaluation.join_wall", "evaluation.benchutil"):
         assert f"postgres_word2vec_tpu_torch.{name}" in mods, name
 
 

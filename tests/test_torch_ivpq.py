@@ -118,8 +118,7 @@ def test_build_join_tiles_matches_jax(join_case, with_vecs):
     assert t.inf_tile == int(jt.inf_tile)
     lids = np.asarray(jt.local_ids)
     real = lids >= 0
-    np.testing.assert_array_equal(np_(t.row_ids)[real], tids[lids[real]])
-    assert (np_(t.row_ids)[~real] == -1).all()
+    np.testing.assert_array_equal(np_(t.local_ids), lids)
     np.testing.assert_array_equal(np_(t.codes_t)[:, real],
                                   np.asarray(jt.codes_t)[:, real])
     np.testing.assert_array_equal(np_(t.rowterm), np.asarray(jt.rowterm))

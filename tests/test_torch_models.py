@@ -11,7 +11,6 @@ import pytest
 import torch
 
 from postgres_word2vec_tpu import Freddy as JFreddy
-from postgres_word2vec_tpu import VectorStore as JStore
 from postgres_word2vec_tpu.models import exact as jexact
 from postgres_word2vec_tpu.models import pq as jpq
 
@@ -21,30 +20,18 @@ from postgres_word2vec_tpu_torch.api import NOT_PORTED
 from postgres_word2vec_tpu_torch.models import exact
 from postgres_word2vec_tpu_torch.utils.convert import pq_from_numpy
 
-from test_torch_parity_util import assert_same_top_k, np_, to_jax, to_torch
+from test_torch_parity_util import (PQ_ENGINE, PROBE_ENGINE,
+                                    assert_same_top_k, np_, save_jax_engine,
+                                    to_jax, to_torch)
+from test_torch_parity_util import clustered as _clustered
 
 N, D = 4096, 48
-
-
-def _clustered(rng, n=N, d=D, centers=64):
-    c = rng.normal(size=(centers, d))
-    x = c[rng.integers(0, centers, n)] + 0.6 * rng.normal(size=(n, d))
-    x /= np.linalg.norm(x, axis=1, keepdims=True)
-    return x.astype(np.float32)
 
 
 @pytest.fixture(scope="module")
 def saved_jax_engine(tmp_path_factory):
     """A JAX engine (OPQ PQ family only) built on CPU and saved."""
-    rng = np.random.default_rng(5)
-    words = [f"w{i}" for i in range(N)]
-    store = JStore.from_arrays(words, _clustered(rng))
-    eng = JFreddy.build(store, seed=0, with_ivfadc=False, with_ivpq=False,
-                        pq_m=12, pq_k=16, train_size=None, iters=5,
-                        opq_iters=2)
-    path = tmp_path_factory.mktemp("engine")
-    eng.save(path)
-    return eng, path
+    return save_jax_engine(tmp_path_factory.mktemp("engine"), **PQ_ENGINE)
 
 
 # ------------------------------------------------------------------ exact
@@ -263,6 +250,7 @@ def test_every_jax_engine_method_exists_or_raises(saved_jax_engine):
               if not n.startswith("_") and callable(v)]
     for name in public:
         assert hasattr(port, name), name
+    assert set(NOT_PORTED) == {"enable_sharding"}
     for name in NOT_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(port, name)()
@@ -321,16 +309,8 @@ def test_jax_engine_with_int8_exact_loads(saved_jax_engine, tmp_path):
 def saved_probe_engine(tmp_path_factory):
     """A JAX engine with IVFADC (24 cells) and IVPQ (2 × 8 coarse
     centroids) and an active statistics table, built on CPU and saved."""
-    rng = np.random.default_rng(6)
-    words = [f"w{i}" for i in range(N)]
-    store = JStore.from_arrays(words, _clustered(rng))
-    eng = JFreddy.build(store, seed=0, with_pq=False, ivfadc_m=12,
-                        ivfadc_k=16, k_coarse=24, ivpq_m=12, ivpq_k=16,
-                        ivpq_k_coarse=8, train_size=None, iters=4)
-    eng.create_statistics("dom", words[:2000])
-    path = tmp_path_factory.mktemp("probe_engine")
-    eng.save(path)
-    return eng, path
+    return save_jax_engine(tmp_path_factory.mktemp("probe_engine"),
+                           **PROBE_ENGINE)
 
 
 def _rows_as_top_k(rows, store, names, k):

@@ -1,6 +1,7 @@
 """Helpers for holding the PyTorch port to the JAX package on the same
-numpy inputs (imported by tests/test_torch_*.py), and tests of the
-helpers' own tie rules."""
+numpy inputs (imported by tests/test_torch_*.py): conversions, small
+clustered data, the small JAX engines the engine tests load in the port
+(:func:`save_jax_engine`), and tests of the helpers' own tie rules."""
 
 import numpy as np
 import torch
@@ -20,6 +21,51 @@ def np_(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def clustered(rng, n=4096, d=48, centers=64):
+    """``n`` unit rows around ``centers`` Gaussian centres, float32."""
+    c = rng.normal(size=(centers, d))
+    x = c[rng.integers(0, centers, n)] + 0.6 * rng.normal(size=(n, d))
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    return x.astype(np.float32)
+
+
+def save_jax_engine(path, *, data_seed, n=4096, statistics=None,
+                    **build_kw):
+    """Build a small JAX engine on the CPU over ``clustered`` rows of
+    ``data_seed`` (words ``w0``…), optionally with an active statistics
+    table ``statistics = (name, words)``, save it under ``path`` →
+    (engine, path)."""
+    from postgres_word2vec_tpu import Freddy as JFreddy
+    from postgres_word2vec_tpu import VectorStore as JStore
+
+    rng = np.random.default_rng(data_seed)
+    words = [f"w{i}" for i in range(n)]
+    eng = JFreddy.build(JStore.from_arrays(words, clustered(rng, n=n)),
+                        seed=0, train_size=None, **build_kw)
+    if statistics is not None:
+        eng.create_statistics(*statistics)
+    eng.save(path)
+    return eng, path
+
+
+#: The small JAX engines the port's engine tests load
+#: (tests/test_torch_models.py, tests/test_torch_engine.py): the OPQ PQ
+#: family alone, and IVFADC (24 cells) with IVPQ (2 × 8 coarse centroids)
+#: and an active statistics table.
+PQ_ENGINE = dict(data_seed=5, with_ivfadc=False, with_ivpq=False, pq_m=12,
+                 pq_k=16, iters=5, opq_iters=2)
+PROBE_ENGINE = dict(data_seed=6, with_pq=False, ivfadc_m=12, ivfadc_k=16,
+                    k_coarse=24, ivpq_m=12, ivpq_k=16, ivpq_k_coarse=8,
+                    iters=4, statistics=("dom", [f"w{i}"
+                                                 for i in range(2000)]))
+
+#: all three families, no OPQ rotation (a FREDDY dump cannot hold one, and
+#: the JAX engine's PQ grouping builds unrotated LUTs)
+FULL_ENGINE = dict(data_seed=7, n=3000, pq_m=12, pq_k=16, opq_iters=0,
+                   ivfadc_m=12, ivfadc_k=16, k_coarse=24, ivpq_m=12,
+                   ivpq_k=16, ivpq_k_coarse=8, iters=4)
 
 
 def assert_same_top_k(d_port, i_port, d_ref, i_ref, *, atol):
