@@ -62,14 +62,37 @@ a user calls, and holds every hand-written kernel to its plain version:
    the store-table handle's), the unprepared join's tile cache (the second
    call reports no data retrieval), and a FREDDY dump exported and
    imported back on the card for a 20,000-row engine;
-8. last, so that the numbers above are unchanged, slice 3's online
-   insert: ``insert_batch`` of 10,240 new two-word terms in 4 batches of
-   2,560 (the fourth crosses the IVFADC tail's 8,192 rows, so the tail is
-   spliced into the lists on the card), a standalone int8 exact index
-   extended with each batch and held to a fresh build, every inserted
-   term its own exact top-1, PQ-PV and IVFADC-PV self-recall before and
-   after the splice, and the int8 kernels and K6 launched on the grown
-   tables.
+8. serving on the card (slice 10): the port's ``AsyncQueryServer`` over
+   the same engine (exact /knn on the fused bf16 index, K1), loaded by
+   the load driver's raw-socket client processes
+   (``evaluation/serving_bench.py``, 32 clients, a few seconds a window):
+   /knn for the exact, PQ + PV20 and IVFADC + PV20 families, /knn_in over
+   the 100,000-row target set (exact and PQ cores), /knn_join with
+   16-query requests against the prepared set (method 2, alpha 200), each
+   window a path with its QPS, p50/p99, errors, coalesced batch, stage
+   times and the card's busy share over one profiled second; 256 served
+   answers a family held to the engine's own batched call; every other
+   endpoint once; a bad word coalesced with good ones failing alone;
+   ``pipeline_depth`` 1, 2 and 4; the echo floor of the same fleet; one
+   window of the threaded ``QueryServer`` (and, in phase 7, /insert
+   through the server on the migrated 20,000-row engine);
+9. the streaming builders (``models/builders.py``): PQ 12×256 and IVFADC
+   (1000 cells) trained on 100,000 rows, the 3,072,000 rows streamed in
+   262,144-row batches with a checkpoint and ``resume`` halfway, the codes
+   bit-equal to one encode of the table, rows/s;
+10. anisotropic refinement: an OPQ 12×256 ``PQIndex.build`` with
+    ``aniso_eta=4`` beside the same build without it (build time,
+    recall@10 of PQ and PQ + PV20);
+11. the evaluation harness: ``time_precision_sweep`` (methods 0-2, pvf 1,
+    5, 20), ``confidence_eval``, ``target_count_eval`` and an HTML report;
+12. last, so that the numbers above are unchanged, slice 3's online
+    insert: ``insert_batch`` of 10,240 new two-word terms in 4 batches of
+    2,560 (the fourth crosses the IVFADC tail's 8,192 rows, so the tail
+    is spliced into the lists on the card), a standalone int8 exact index
+    extended with each batch and held to a fresh build, every inserted
+    term its own exact top-1, PQ-PV and IVFADC-PV self-recall before and
+    after the splice, and the int8 kernels and K6 launched on the grown
+    tables.
 
 Usage: ``python3 chip_smoke.py [--profile OUT.json]`` from the repository
 root, on a machine with one CUDA GPU. It fails (non-zero exit, no result
@@ -84,6 +107,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -141,6 +165,17 @@ ENGINE_FLOORS = {"knn_in_pq_batch@5": 0.45,                     # (0.5602)
                  "analogy_3cosadd_in_pq": 0.05,                 # (0.1719)
                  "analogy_3cosadd_in_ivpq": 0.05,               # (0.1719)
                  "grouping_func_pq": 0.5}                       # (0.6611)
+# the serving phase: client processes, window seconds (the short windows:
+# /knn_in, the depth sweep, the echo floor, the threaded front end),
+# served answers held to the engine's per family, queries per /knn_join
+SERVE_CLIENTS, SERVE_S, SERVE_S_SHORT = 32, 4.0, 3.0
+SERVE_CHECK, JOIN_BATCH = 256, 16
+# the builders phase streams the table in batches of this many rows
+BUILDER_BATCH = 262_144
+# anisotropic refinement: its eta, and sanity floors on its recall@10 set
+# below the measured values (the plain OPQ build's in brackets, PR 9 run 2)
+ANISO_ETA = 4.0
+ANISO_FLOORS = {"pq@10": 0.3, "pq_pv20@10": 0.85}       # (0.6043, 0.9969)
 # the insert phase: new two-word terms, in batches
 INSERT_TERMS, INSERT_BATCH = 10_240, 2_560
 INSERT_FLOORS = {"pq_pv20_self@5": 0.9, "ivfadc_pv20_self@5": 0.8}
@@ -162,6 +197,23 @@ def check(cond: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def stop_children() -> None:
+    """Fail if a process this script started is still running, after
+    killing and reaping it: the script leaves no process behind."""
+    import signal
+
+    from postgres_word2vec_tpu_torch.evaluation import serving_bench as sb
+
+    left = sb.child_processes()
+    for entry in left:
+        pid = int(entry.split()[0])
+        with contextlib.suppress(OSError):
+            os.kill(pid, signal.SIGKILL)
+            os.waitpid(pid, 0)
+    check(not left, f"processes still running at the end: {left}")
+    log("[13] no child process left")
 
 
 def gpu_line() -> str:
@@ -593,7 +645,7 @@ def rows_to_ids(torch, store, rows, names, k: int):
 
 def insert_phase(torch, ExactIndex, eng, exact8, run_path,
                  path_launches: dict, card: str) -> dict:
-    """Phase 8: ``insert_batch`` of INSERT_TERMS new terms "w{i} w{i+N/2}"
+    """Phase 12: ``insert_batch`` of INSERT_TERMS new terms "w{i} w{i+N/2}"
     (distinct, each the mean of two existing words) in batches of
     INSERT_BATCH, with the engine's LUT knob at int8. After each batch:
     the standalone int8 exact index ``exact8`` is extended with the batch's
@@ -655,7 +707,7 @@ def insert_phase(torch, ExactIndex, eng, exact8, run_path,
                "insert_s": dt, "extended_s": t_ext, "spliced": bool(spliced),
                "ivfadc_tail": eng.ivfadc.tail_count, **selfrec}
         out["batches"].append(row)
-        log(f"[8] insert batch {b0 // INSERT_BATCH + 1}: {n_ins} terms in "
+        log(f"[12] insert batch {b0 // INSERT_BATCH + 1}: {n_ins} terms in "
             f"{dt:.3f} s ({n_ins / dt:.0f} terms/s), int8 exact extended() "
             f"{t_ext * 1e3:.2f} ms, IVFADC tail {eng.ivfadc.tail_count}"
             f"{' (spliced)' if spliced else ''}, " + ", ".join(
@@ -970,6 +1022,7 @@ def engine_phase(torch, eng, store, words, qjoin, jwords, run_path,
     check(back.knn_in_ivpq_batch(words[:16], JOIN_K, mt)
           == small.knn_in_ivpq_batch(words[:16], JOIN_K, mt),
           "the imported engine's join differs from the exported one's")
+    serve_insert(back, run_path, card)
     del small, back
 
     eng.params = dataclasses.replace(saved_params)
@@ -987,6 +1040,467 @@ def engine_phase(torch, eng, store, words, qjoin, jwords, run_path,
     for name, floor in ENGINE_FLOORS.items():
         check(rec[name] >= floor, f"{name} {rec[name]:.4f} < floor {floor}")
     return out
+
+
+def same_ranked(got, want, tol: float) -> int:
+    """How many rows of a served answer break agreement with the engine's
+    own (both lists of ``[word, sim]`` or ``[query, word, sim]``): the
+    similarities must agree within ``tol`` at every rank, and the rows be
+    the same but where two tie within ``tol`` (a tied row may swap, or
+    differ at its query's last rank)."""
+    if len(got) != len(want):
+        return max(len(got), len(want))
+    bad = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if abs(g[-1] - w[-1]) > tol:
+            bad += 1
+            continue
+        if list(g[:-1]) == list(w[:-1]):
+            continue
+        group = [j for j in range(len(want)) if want[j][:-2] == w[:-2]]
+        tied = [list(want[j][:-1]) for j in group
+                if abs(want[j][-1] - w[-1]) <= tol]
+        if list(g[:-1]) not in tied and abs(w[-1] - want[group[-1]][-1]) \
+                > tol:
+            bad += 1
+    return bad
+
+
+def served(port: int, path: str, bodies: list, threads: int = 32) -> list:
+    """Send ``bodies`` (JSON-able, or bytes already encoded) to ``path``
+    from ``threads`` concurrent clients, so that they coalesce →
+    [(status, decoded body)] in order."""
+    import urllib.error
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(body):
+        data = body if isinstance(body, bytes) else json.dumps(body).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                     data=data)
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    with ThreadPoolExecutor(threads) as ex:
+        return list(ex.map(one, bodies))
+
+
+def serving_phase(torch, eng, fused, run_path, path_launches: dict,
+                  card: str) -> dict:
+    """Phase 8: serving on the card. The port's ``AsyncQueryServer``
+    (standard-library HTTP, pipeline depth 2) on 127.0.0.1 over the
+    full-width engine, its exact family on the fused bf16 index (K1), its
+    loop on a thread of this process, warmed up first. The load driver's
+    raw-socket client processes (SERVE_CLIENTS, spawned once; ``k`` = K)
+    run a window each against /knn for the exact, PQ + PV20 and IVFADC + PV20
+    families, /knn_in over the JOIN_T-row target set with the exact and
+    the PQ core, and /knn_join with JOIN_BATCH-query requests against the
+    prepared set (method 2, alpha 200); each window is a path (launch
+    counts set to 0 before it, read after it), reports QPS, p50/p99,
+    errors, the mean and max coalesced batch, the stage times and the card's
+    busy share over one profiled second, and fails on any error. Then
+    SERVE_CHECK served answers a family are held to the engine's own
+    batched call, every other endpoint is called once, a bad word
+    coalesced with good ones fails alone, ``pipeline_depth`` 1 and 4 get
+    an exact window each, the same fleet measures the echo floor, and the
+    threaded ``QueryServer`` one exact window."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from postgres_word2vec_tpu_torch.evaluation import serving_bench as sb
+    from postgres_word2vec_tpu_torch.server import QueryServer
+    from postgres_word2vec_tpu_torch.server_async import AsyncQueryServer
+
+    saved_params = dataclasses.replace(eng.params)
+    saved_dispatch = dict(eng.dispatch)
+    saved_exact = eng.exact
+    eng.exact = fused                 # exact /knn on K1
+    eng.set_pq_lut_dtype("bf16")
+    eng.set_pvf(20)
+    eng.set_w(3)
+    traces = tempfile.TemporaryDirectory()
+    tmp = traces.name
+    out = {"windows": {}, "checks": {}, "cpus": os.cpu_count(),
+           "clients": SERVE_CLIENTS, "gpu": card}
+    rng = np.random.default_rng(SEED)
+    check_words = [f"w{i}" for i in rng.choice(N, SERVE_CHECK,
+                                               replace=False)]
+    tids = list(range(JOIN_T))
+    tid_t = torch.arange(JOIN_T, device="cuda")
+    tmask = torch.ones(JOIN_T, dtype=torch.bool, device="cuda")
+    targets_extra = ', "targets": ' + json.dumps(tids)
+
+    def window(srv, name, seconds=SERVE_S, batcher="knn", **kw):
+        """One measured window against ``srv``, a path of its own."""
+        stats = {"knn": srv._knn_batcher, "knn_in": srv._knn_in_batcher,
+                 None: None}[batcher]
+        before_stage = dict(srv.runner.stage_s)
+        if stats is not None:
+            before = (stats.batched_calls, stats.items_done)
+            stats.max_coalesced = 0
+        w = run_path(f"serve_{name}", lambda: fleet.window(
+            srv.port, N, K, seconds, profile_dir=os.path.join(tmp, name),
+            **kw))
+        w["launches"] = path_launches[f"serve_{name}"]
+        w["stage_s"] = {k: v - before_stage[k]
+                        for k, v in srv.runner.stage_s.items()}
+        if stats is not None:
+            calls = stats.batched_calls - before[0]
+            w["batched_calls"] = calls
+            w["mean_batch"] = (stats.items_done - before[1]) / max(calls, 1)
+            w["max_batch"] = stats.max_coalesced
+        out["windows"][name] = w
+        lat = w["latency_ms"]
+        log(f"[8] window {name}: {w['qps']:.1f} QPS, p50 {lat['p50']:.2f} "
+            f"ms, p99 {lat['p99']:.2f} ms, errors {w['errors']}, batch "
+            f"mean {w.get('mean_batch', 0):.2f} max {w.get('max_batch', 0)}"
+            f", busy {w.get('busy_share', 0):.3f}, stage_s "
+            + ", ".join(f"{k} {v:.3f}" for k, v in w["stage_s"].items())
+            + f", launched {w['launches']} ({SERVE_CLIENTS} clients, "
+            f"{os.cpu_count()} cpus) on {card}")
+        check(w["errors"] == 0 and w["completed"] > 0,
+              f"serving window {name}: {w['errors']} errors, "
+              f"{w['completed']} completed, {w.get('error_kinds')}")
+        return w
+
+    def agree(name, got, want, tol):
+        bad = sum(code != 200 or same_ranked(r["result"], wrows, tol)
+                  for (code, r), wrows in zip(got, want))
+        out["checks"][name] = {"answers": len(got), "disagree": bad,
+                               "tol": tol}
+        check(bad == 0, f"{name}: {bad} of {len(got)} served answers "
+              f"differ from the engine's own (tol {tol})")
+
+    def engine_rows(d, i):
+        return [[list(r) for r in rows] for rows in eng._format_knn(d, i)]
+
+    t0 = time.perf_counter()
+    with sb.ClientFleet(SERVE_CLIENTS) as fleet:
+        out["fleet_start_s"] = time.perf_counter() - t0
+        srv = AsyncQueryServer(eng, port=0, pipeline_depth=2).start()
+        try:
+            srv.warmup(k=K)
+            # ---- /knn windows, one per family, and their served answers
+            qcheck = eng.store.vectors_for(check_words)
+            # (the probe's shape picks K6 or K7 for IVFADC)
+            for fam, kernel, tol in (
+                    ("exact", ("fused_exact_scan",), 1e-5),
+                    ("pq_pv", ("adc_scan_binned",), 1e-5),
+                    ("ivfadc_pv", ("budget_adc", "budget_adc_grouped"),
+                     1e-4)):
+                sb.post(srv.port, "/config",
+                        {"set_knn_function": sb.FAMILY_IMPL[fam]})
+                w = window(srv, f"knn_{fam}", check="rows")
+                check(any(w["launches"].get(n, 0) for n in kernel),
+                      f"/knn {fam} launched none of {kernel}")
+                got = served(srv.port, "/knn", [{"query": q, "k": K}
+                                                for q in check_words])
+                agree(f"knn_{fam}", got, engine_rows(*eng.knn_matrix(qcheck,
+                                                                      K)), tol)
+            # ---- /knn_in over the target set, exact and PQ cores
+            for impl, kernel in (("knn_in_exact", None), ("knn_in_pq",
+                                                          "adc_scan")):
+                sb.post(srv.port, "/config", {"set_knn_in_function": impl})
+                w = window(srv, impl, seconds=SERVE_S_SHORT, batcher="knn_in",
+                           path="/knn_in", extra=targets_extra, check="rows")
+                if kernel:
+                    check(w["launches"].get(kernel, 0) > 0,
+                          f"/knn_in {impl} did not launch {kernel}")
+                got = served(srv.port, "/knn_in", [
+                    ('{"query": "%s", "k": %d%s}' % (q, K, targets_extra))
+                    .encode() for q in check_words])
+                agree(impl, got, engine_rows(*eng.knn_in_matrix(
+                    qcheck, K, tid_t, tmask)), 1e-5)
+            # ---- /knn_join: JOIN_BATCH-query requests, method 2, alpha
+            # 200, against a target set registered through the server
+            ph = sb.post(srv.port, "/prepare_targets",
+                         {"name": "served", "targets": tids})["result"]
+            check(ph["prepared"] == "served" and ph["size"] == JOIN_T,
+                  f"/prepare_targets: {ph}")
+            sb.post(srv.port, "/config", {
+                "set_knn_join_function": "knn_in_ivpq_batch",
+                "set_method_flag": 2, "set_alpha": 200,
+                "set_statistics_table": "t100k"})
+            w = window(srv, "knn_join_m2_a200", batcher=None, path="/knn_join",
+                       batch=JOIN_BATCH, extra=', "targets": "served"',
+                       check="self")
+            # the probe's shape picks K6 or K7 (budget_adc_auto)
+            check(w["launches"].get("budget_adc", 0)
+                  + w["launches"].get("budget_adc_grouped", 0) > 0,
+                  "/knn_join launched neither budget_adc nor "
+                  "budget_adc_grouped")
+            groups = [check_words[s:s + JOIN_BATCH]
+                      for s in range(0, SERVE_CHECK, JOIN_BATCH)]
+            got = served(srv.port, "/knn_join",
+                         [{"queries": g, "k": K, "targets": "served"}
+                          for g in groups])
+            agree("knn_join_m2_a200", got,
+                  [[list(r) for r in eng.knn_join(g, K, "served")]
+                   for g in groups], 1e-5)
+            # ---- every other endpoint once; a bad word fails alone
+            eng.dispatch = dict(saved_dispatch)
+            t = check_words[:3]
+            calls = {
+                "/knn_batch": {"queries": check_words[:8], "k": K},
+                "/analogy": {"w1": t[0], "w2": t[1], "w3": t[2]},
+                "/analogy_in": {"w1": t[0], "w2": t[1], "w3": t[2],
+                                "targets": tids[:1000]},
+                "/groups": {"tokens": check_words,
+                            "group_tokens": [f"w{i}" for i in range(10)]},
+                "/cluster": {"tokens": check_words, "k": 8},
+                "/tokenize": {"text": " ".join(t)},
+                "/statistics": {"name": "served", "domain": check_words},
+                "/config": {"set_pvf": 20},
+            }
+            for path, body in calls.items():
+                code, r = served(srv.port, path, [body], threads=1)[0]
+                check(code == 200 and r["result"] is not None,
+                      f"{path}: {code} {str(r)[:200]}")
+            code, raw = served(srv.port, "/tokenize",
+                               [{"text": " ".join(t), "raw": True}], 1)[0]
+            want_raw = eng.store.vectors[torch.tensor(
+                eng.store.get_ids(t), device="cuda")].mean(0).cpu().numpy()
+            check(code == 200 and np.abs(np.asarray(raw["result"])
+                                         - want_raw).max() <= 1e-5,
+                  "/tokenize raw differs from the direct mean")
+            eng.set_statistics_table("t100k")
+            health = sb.get(srv.port, "/health")
+            check(health["status"] == "ok" and health["vocab"] == N
+                  and "cuda" in health["device"], f"/health: {health}")
+            code, r = served(srv.port, "/nope", [{}], 1)[0]
+            check(code == 404, f"an unknown path answered {code}")
+            mixed = [{"query": "no_such_word" if j == 3 else w, "k": K}
+                     for j, w in enumerate(check_words[:16])]
+            got = served(srv.port, "/knn", mixed, threads=16)
+            check([c for c, _ in got] == [400 if j == 3 else 200
+                                          for j in range(16)],
+                  "a bad word coalesced with good ones: "
+                  f"{[c for c, _ in got]}")
+            out["health"] = health
+        finally:
+            srv.stop()
+        # ---- pipeline depth 1 and 4 (depth 2 is the exact window above)
+        eng.set_knn_function("k_nearest_neighbour")
+        out["depth_sweep"] = {2: out["windows"]["knn_exact"]["qps"]}
+        for depth in (1, 4):
+            srv = AsyncQueryServer(eng, port=0, pipeline_depth=depth).start()
+            try:
+                srv.warmup(k=K)
+                out["depth_sweep"][depth] = window(
+                    srv, f"knn_exact_depth{depth}", seconds=SERVE_S_SHORT,
+                    check="rows")["qps"]
+            finally:
+                srv.stop()
+        log("[8] pipeline depth sweep (exact /knn QPS): " + ", ".join(
+            f"depth {d} {q:.1f}"
+            for d, q in sorted(out["depth_sweep"].items()))
+            + f" on {card}")
+        # ---- the echo floor: the same fleet, no engine
+        w = sb.run_echo_floor(fleet, SERVE_S_SHORT, K)
+        out["echo_floor"] = w
+        check(w["errors"] == 0, f"echo floor: {w['errors']} errors")
+        log(f"[8] echo floor (no engine, same {SERVE_CLIENTS} clients): "
+            f"{w['qps']:.1f} QPS, p50 {w['latency_ms']['p50']:.2f} ms, p99 "
+            f"{w['latency_ms']['p99']:.2f} ms ({os.cpu_count()} cpus)")
+        # ---- the threaded front end, one exact window
+        srv = QueryServer(eng, port=0).start()
+        try:
+            srv.warmup(k=K)
+            window(srv, "knn_exact_threaded", seconds=SERVE_S_SHORT,
+                   check="rows")
+        finally:
+            srv.stop()
+    left = sb.child_processes()
+    check(not left, f"processes left after the client fleet: {left}")
+    log("[8] the client fleet and the resource tracker stopped: no child "
+        "process left")
+    traces.cleanup()
+    eng.exact = saved_exact
+    eng.params = dataclasses.replace(saved_params)
+    eng.dispatch = dict(saved_dispatch)
+    return out
+
+
+def serve_insert(back, run_path, card: str) -> None:
+    """/insert through the port's async server on the migrated small
+    engine of phase 7: the new term is then its own /knn top-1."""
+    from postgres_word2vec_tpu_torch.evaluation import serving_bench as sb
+    from postgres_word2vec_tpu_torch.server_async import AsyncQueryServer
+
+    srv = AsyncQueryServer(back, port=0).start()
+    try:
+        def go():
+            n = sb.post(srv.port, "/insert", {"terms": ["w1 w2", "w5"]})
+            top = sb.post(srv.port, "/knn", {"query": "w1 w2", "k": 1})
+            return n, top
+
+        n, top = run_path("s9_serve_insert", go)
+        check(n["result"] == {"inserted": 1}
+              and top["result"][0][0] == "w1 w2",
+              f"/insert then /knn: {n}, {top}")
+        log(f"[7] /insert through the async server: {n['result']}, the new "
+            f"term's /knn top-1 {top['result'][0]} on {card}")
+    finally:
+        srv.stop()
+
+
+def builders_phase(torch, store, card: str) -> dict:
+    """Phase 9: the streaming builders over the whole table. A PQ (12×256)
+    and an IVFADC (1000 cells, 12×256 residuals) builder train on
+    BUILD["train_size"] sampled rows, then stream all N rows in
+    BUILDER_BATCH-row batches; halfway each writes a checkpoint and the
+    stream goes on in the builder resumed from it. The finished codes (and
+    IVFADC's cells) must be bit-equal to one encode of the whole table with
+    the same codebook; rows/s times the encode calls only."""
+    import tempfile
+
+    from postgres_word2vec_tpu_torch.models import builders
+    from postgres_word2vec_tpu_torch.ops import kmeans
+
+    vn = store.vectors_norm
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    train = vn[torch.randperm(N, generator=gen, device="cuda")[
+        :BUILD["train_size"]]]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("pq", "ivfadc"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "pq":
+                creator = builders.PQIndexCreator.from_training(
+                    gen, train, m=12, k=256, iters=10)
+            else:
+                creator = builders.IVFADCIndexCreator.from_training(
+                    gen, train, m=12, k=256, k_coarse=1000, iters=10)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            feeder = builders.VectorFeeder(vn, batch_size=BUILDER_BATCH)
+            n_batches = -(-N // BUILDER_BATCH)
+            encode_s = 0.0
+            for b, (batch, _) in enumerate(feeder):
+                if b == n_batches // 2:
+                    t1 = time.perf_counter()
+                    creator.checkpoint(f"{tmp}/{name}.npz")
+                    creator = type(creator).resume(f"{tmp}/{name}.npz",
+                                                   device=vn.device)
+                    ckpt_s = time.perf_counter() - t1
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                creator.index_batch(batch)
+                torch.cuda.synchronize()
+                encode_s += time.perf_counter() - t1
+            check(creator.rows_done == N,
+                  f"{name} builder streamed {creator.rows_done} rows")
+            codes = torch.cat(creator._codes)
+            if name == "pq":
+                whole = kmeans.encode_subspaces(vn, creator.codebook.centroids)
+                same = torch.equal(codes, whole)
+            else:
+                cells = kmeans.assign(vn, creator.coarse_centroids)
+                whole = kmeans.encode_residual_subspaces(
+                    vn, creator.coarse_centroids, cells,
+                    creator.codebook.centroids)
+                same = (torch.equal(codes, whole) and torch.equal(
+                    torch.cat(creator._assign).long(), cells))
+            check(same, f"the streamed {name} codes differ from one encode "
+                  f"of the whole table")
+            idx = creator.finalize()
+            check(idx.size == N, f"the finalized {name} index")
+            out[name] = {"rows_per_s": N / encode_s, "encode_s": encode_s,
+                         "train_s": train_s, "checkpoint_resume_s": ckpt_s}
+            log(f"[9] {name} builder: trained in {train_s:.2f} s, {N} rows "
+                f"streamed in {n_batches} batches of {BUILDER_BATCH} at "
+                f"{N / encode_s:,.0f} rows/s, checkpoint + resume at batch "
+                f"{n_batches // 2} in {ckpt_s:.2f} s, codes bit-equal to "
+                f"one encode of the table on {card}")
+    return out
+
+
+def aniso_phase(torch, store, q256, gt256, card: str) -> dict:
+    """Phase 10: anisotropic refinement at the smoke engine's PQ shape
+    (OPQ 12×256, BUILD's training): ``PQIndex.build`` with
+    ``aniso_eta=ANISO_ETA`` beside the same build without it, each one's
+    build time and recall@10 against the float32 exact scan (PQ and PQ +
+    PV20) on EVAL_Q queries."""
+    from postgres_word2vec_tpu_torch.models.pq import PQIndex
+
+    out = {}
+    for name, eta in (("plain", None), ("aniso", ANISO_ETA)):
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pq = PQIndex.build(gen, store.vectors_norm, m=12, k=256,
+                           opq_iters=10, aniso_eta=eta, **BUILD)
+        torch.cuda.synchronize()
+        row = {"build_s": time.perf_counter() - t0,
+               "pq@10": recall_at(pq.search(q256, K)[1], gt256, K),
+               "pq_pv20@10": recall_at(pq.search_pv(
+                   q256, K, 20, store.vectors_norm)[1], gt256, K)}
+        out[name] = row
+        log(f"[10] PQ 12x256 OPQ {name}{'' if eta is None else f' eta {eta}'}"
+            f": built in {row['build_s']:.2f} s, recall@10 PQ "
+            f"{row['pq@10']:.4f}, PQ + PV20 {row['pq_pv20@10']:.4f} on "
+            f"{card}")
+        del pq
+    for key, floor in ANISO_FLOORS.items():
+        check(out["aniso"][key] >= floor,
+              f"aniso {key} {out['aniso'][key]:.4f} < floor {floor}")
+    return out
+
+
+def harness_phase(torch, eng, words, card: str) -> dict:
+    """Phase 11: the evaluation harness on the full-width engine:
+    ``time_precision_sweep`` over methods 0, 1, 2 at alphas 50 and 200 and
+    pvf 1, 5 and 20 (method 2) on EVAL_Q queries against the prepared
+    JOIN_T-row set, ``confidence_eval`` and ``target_count_eval`` on 64
+    queries, and an HTML report written with the port's ``html_report``."""
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
+    from postgres_word2vec_tpu_torch.evaluation import harness, html_report
+
+    saved = dataclasses.replace(eng.params)
+    eng.set_statistics_table("t100k")
+    queries = words[N - EVAL_Q:]
+    tids = torch.arange(JOIN_T, device="cuda")
+    t0 = time.perf_counter()
+    recs = harness.time_precision_sweep(eng, queries, JOIN_K, "t100k",
+                                        alphas=(50, 200), pvfs=(1, 5, 20))
+    conf = harness.confidence_eval(eng, queries[:64], JOIN_K, tids,
+                                   confidences=(0.2, 0.8))
+    tc = harness.target_count_eval(eng, queries[:64], JOIN_K, tids)
+    with tempfile.TemporaryDirectory() as tmp:
+        page = html_report.write_html_report(
+            Path(tmp) / "report.html",
+            [html_report.figure_from_records(recs)],
+            title="IVPQ join time / precision", subtitle=card)
+        size = page.stat().st_size
+    took = time.perf_counter() - t0
+    eng.params = saved
+    check(len(recs) == 10 and all(0 <= r["precision"] <= 1 for r in recs),
+          f"time_precision_sweep records: {recs}")
+    m1 = [r["precision"] for r in recs if r["method"] == 1
+          and r["alpha"] == 200][0]
+    check(m1 >= FLOORS["join_m1_a200@5"], f"harness method 1 alpha 200 "
+          f"precision {m1:.4f} < {FLOORS['join_m1_a200@5']}")
+    check(size > 10_000, f"the HTML report has {size} bytes")
+    for r in recs:
+        log(f"[11] sweep method {r['method']} alpha {r['alpha']} pvf "
+            f"{r['pvf']}: precision {r['precision']:.4f}, "
+            f"{r['per_query_ms']:.4f} ms/query on {card}")
+    log(f"[11] confidence_eval {conf}; target_count_eval mean abs rel "
+        f"divergence {tc['mean_abs_rel_divergence']:.4f}; HTML report "
+        f"{size} bytes; harness phase {took:.1f} s")
+    return {"sweep": recs, "confidence": conf,
+            "target_count_divergence": tc["mean_abs_rel_divergence"],
+            "report_bytes": size, "seconds": took}
 
 
 def main() -> int:
@@ -1985,10 +2499,24 @@ def main() -> int:
                           path_launches, card)
     log(f"[7] slice 9 phase took {time.perf_counter() - t0:.1f} s")
 
-    # ------------------------------------------------------- 8: insert
+    # ------------------------------------------------------ 8: serving
+    t0 = time.perf_counter()
+    serving = serving_phase(torch, eng, fused, run_path, path_launches,
+                            card)
+    log(f"[8] serving phase took {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------- 9-11: builders, aniso, harness
+    t0 = time.perf_counter()
+    built_rows = builders_phase(torch, store, card)
+    aniso = aniso_phase(torch, store, q256, gt256, card)
+    evaluation = harness_phase(torch, eng, words, card)
+    log(f"[9-11] builders, anisotropic and harness phases took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------------ 12: insert
     inserted = insert_phase(torch, ExactIndex, eng, exact8, run_path,
                             path_launches, card)
-    log(f"[8] path after_insert launched {path_launches['after_insert']}")
+    log(f"[12] path after_insert launched {path_launches['after_insert']}")
     launches = tally()
 
     summary = {"kernels": [
@@ -1999,9 +2527,12 @@ def main() -> int:
          "bound_by": bounds[k.name][1], "bound_term": bounds[k.name][2],
          "library_ms": library_ms[k.name]}
         for k in kernels.KERNELS.values()]}
-    log(f"[9] the whole run took {time.perf_counter() - started:.1f} s")
+    stop_children()
+    log(f"[13] the whole run took {time.perf_counter() - started:.1f} s")
     log(json.dumps({"recall": rec, "paths_ms_per_query": times,
                     "insert": inserted, "engine": engine,
+                    "serving": serving, "builders": built_rows,
+                    "aniso": aniso, "harness": evaluation,
                     "path_launches": path_launches,
                     "sweep_ms": sweep, "budget_adc_join_ms": k6_ms,
                     "budget_adc_join_bounds": k6_bounds,

@@ -181,6 +181,10 @@ def _resolve_shortlist(shortlist: str, k: int, pvf: int, impl: str) -> str:
     return "exact"
 
 
+#: the most training rows the anisotropic refinement takes
+_ANISO_ROWS = 100_000
+
+
 @dataclasses.dataclass
 class PQIndex:
     """Exhaustive-scan PQ index: packed codes + codebook on one device.
@@ -223,27 +227,45 @@ class PQIndex:
     def build(cls, generator: torch.Generator, vectors: torch.Tensor, *,
               m: int = 12, k: int = 256, train_size: int | None = 100_000,
               iters: int = 10, restarts: int = 1, init: str = "sample",
-              opq_iters: int = 0, aniso_eta: float | None = None
-              ) -> "PQIndex":
+              opq_iters: int = 0, aniso_eta: float | None = None,
+              aniso_iters: int = 4) -> "PQIndex":
         """Train + encode (pq_index.py ``main`` parity; defaults from
         pq_config.json: m=12, k=256, train_size=100k). ``opq_iters > 0``
-        learns an OPQ rotation first. ``aniso_eta`` (anisotropic
-        refinement) is not ported yet and raises."""
-        if aniso_eta is not None:
-            raise NotImplementedError(
-                "aniso_eta arrives with ROADMAP.md queue 1, item 5 "
-                "(anisotropic refine)")
+        learns an OPQ rotation first.
+
+        ``aniso_eta`` (e.g. 2–4) enables anisotropic (score-aware)
+        refinement: the trained codebooks get ``aniso_iters`` rounds of
+        weighted Lloyd that penalize the ranking-relevant PARALLEL residual
+        η× (:func:`ops.kmeans.anisotropic_refine`) on at most 100,000
+        training rows (the refinement's (n, dsub²) intermediate must not
+        scale with the table), and the table is encoded under the same
+        metric. It stacks with OPQ. LUTs and search are unchanged; later
+        ``add()`` rows encode plain-L2, as in the JAX package
+        (pq.py:340-410)."""
         if opq_iters > 0:
             train = _sample_rows(generator, vectors, train_size)
             rot, cb = train_opq_rotation(generator, train, m, k,
                                          opq_iters=opq_iters,
                                          kmeans_iters=max(iters // 4, 3))
+            if aniso_eta is not None:
+                ref = _sample_rows(generator, train, _ANISO_ROWS)
+                cb = PQCodebook(kmeans.anisotropic_refine(
+                    kmeans.split_subspaces(ref.float() @ rot, m),
+                    cb.centroids, aniso_eta, aniso_iters), cb.counts)
             codes = kmeans.encode_subspaces(vectors, cb.centroids,
-                                            rotation=rot)
+                                            rotation=rot,
+                                            aniso_eta=aniso_eta)
             return cls(recount(cb, codes), codes, rotation=rot)
         cb = train_codebook(generator, vectors, m, k, train_size=train_size,
                             iters=iters, restarts=restarts, init=init)
-        codes = kmeans.encode_subspaces(vectors, cb.centroids)
+        if aniso_eta is not None:
+            ref = _sample_rows(generator, vectors,
+                               min(train_size or _ANISO_ROWS, _ANISO_ROWS))
+            cb = PQCodebook(kmeans.anisotropic_refine(
+                kmeans.split_subspaces(ref, m), cb.centroids, aniso_eta,
+                aniso_iters), cb.counts)
+        codes = kmeans.encode_subspaces(vectors, cb.centroids,
+                                        aniso_eta=aniso_eta)
         return cls(recount(cb, codes), codes)
 
     def _rotate(self, x: torch.Tensor) -> torch.Tensor:

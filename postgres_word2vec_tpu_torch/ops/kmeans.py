@@ -219,11 +219,13 @@ def kmeans(generator: torch.Generator, x: torch.Tensor, k: int,
 
 
 def _encode_chunks(x: torch.Tensor, codebooks: torch.Tensor,
-                   chunk_size: int, prepare) -> torch.Tensor:
+                   chunk_size: int, prepare,
+                   aniso_eta: float | None = None) -> torch.Tensor:
     """Nearest-codeword codes of ``prepare(start, x_chunk_f32)`` per row
     chunk → ``(n, m)`` uint8 (k ≤ 256) or int16. Chunked over rows before
     the subspace split, so no transformed float32 copy of the whole table
-    ever exists."""
+    ever exists. ``aniso_eta`` assigns by the anisotropic metric (see
+    :func:`encode_subspaces`)."""
     m, k, dsub = codebooks.shape
     n, d = x.shape
     if d != m * dsub:
@@ -236,7 +238,12 @@ def _encode_chunks(x: torch.Tensor, codebooks: torch.Tensor,
         xf = prepare(s, x[s:s + chunk_size].float())
         xs = xf.reshape(-1, m, dsub).permute(1, 0, 2)         # (m, c, dsub)
         scores = torch.bmm(xs, cb.transpose(1, 2))            # (m, c, k)
-        codes = torch.argmin(cc - 2.0 * scores, dim=-1)       # (m, c)
+        dist = cc - 2.0 * scores
+        if aniso_eta is not None and aniso_eta != 1.0:
+            nx = torch.sqrt(torch.clamp_min(
+                torch.sum(xs * xs, dim=-1, keepdim=True), 1e-24))
+            dist = dist + (aniso_eta - 1.0) * (nx - scores / nx) ** 2
+        codes = torch.argmin(dist, dim=-1)                    # (m, c)
         out[s:s + chunk_size] = codes.t().to(out.dtype)
     return out
 
@@ -244,17 +251,24 @@ def _encode_chunks(x: torch.Tensor, codebooks: torch.Tensor,
 @no_tf32()
 def encode_subspaces(x: torch.Tensor, codebooks: torch.Tensor, *,
                      chunk_size: int = 65536,
-                     rotation: torch.Tensor | None = None) -> torch.Tensor:
+                     rotation: torch.Tensor | None = None,
+                     aniso_eta: float | None = None) -> torch.Tensor:
     """PQ-encode: ``(n, d) × (m, k, dsub) → (n, m)`` small-int codes.
 
     Neither a transposed nor a rotated float32 copy of the full table ever
     exists (at 3M×300 it would be 3.6 GB). ``rotation`` is an optional
     (d, d) OPQ basis applied per chunk. Code dtype is uint8 when k ≤ 256,
     else int16.
+
+    ``aniso_eta``: assign by the anisotropic metric
+    ``‖x−c‖² + (η−1)((x−c)·x̂)²`` instead of plain L2 — pairs with
+    codebooks trained by :func:`anisotropic_refine` (the (x−c)·x̂ term
+    needs no extra matmul: x̂·c = (x·c)/‖x‖).
     """
     rot = None if rotation is None else rotation.float()
     return _encode_chunks(x, codebooks, chunk_size,
-                          lambda s, xf: xf if rot is None else xf @ rot)
+                          lambda s, xf: xf if rot is None else xf @ rot,
+                          aniso_eta=aniso_eta)
 
 
 @no_tf32()
@@ -271,3 +285,60 @@ def encode_residual_subspaces(x: torch.Tensor,
     return _encode_chunks(
         x, codebooks, chunk_size,
         lambda s, xf: xf - coarse[a[s:s + xf.shape[0]]])
+
+
+def _aniso_refine_single(x: torch.Tensor, c0: torch.Tensor, eta: float,
+                         iters: int) -> torch.Tensor:
+    """Anisotropic (score-aware) Lloyd refinement for ONE subspace.
+
+    Minimizes ``Σᵢ ‖xᵢ−c‖² + (η−1)·((xᵢ−c)·ûᵢ)²`` (ûᵢ = xᵢ/‖xᵢ‖): the
+    residual component PARALLEL to the datapoint — the part that perturbs
+    query·point scores and near-neighbor ranking — is weighted η× against
+    the orthogonal remainder (the ScaNN insight, arXiv:1908.10396). η=1 is
+    plain Lloyd.
+
+    Assignment uses the same anisotropic metric; the update solves the
+    per-centroid normal equations
+        [|I_c|·I + (η−1)·Σ ûûᵀ] c = η·Σ x      (since (û·x)û‖x‖ = x),
+    one (dsub, dsub) positive-definite solve per centroid, batched. Empty
+    clusters keep their previous centroid (JAX kmeans.py:391-437)."""
+    n, dsub = x.shape
+    k = c0.shape[0]
+    xf = x.float()
+    nx = torch.sqrt(torch.clamp_min(torch.sum(xf * xf, dim=-1), 1e-24))
+    u = xf / nx[:, None]
+    w = float(eta) - 1.0
+    xx = nx * nx
+    outer_flat = (u[:, :, None] * u[:, None, :]).reshape(n, dsub * dsub)
+    eye = torch.eye(dsub, device=x.device)
+    ones = torch.ones(n, device=x.device)
+    c = c0.float()
+    for _ in range(iters):
+        cc = torch.sum(c * c, dim=-1)                              # (k,)
+        s = xf @ c.t()                                             # (n, k)
+        d = (xx[:, None] - 2.0 * s + cc[None]
+             + w * (nx[:, None] - s / nx[:, None]) ** 2)
+        a = torch.argmin(d, dim=-1)
+        cnt = torch.zeros(k, device=x.device).index_add_(0, a, ones)
+        sx = torch.zeros(k, dsub, device=x.device).index_add_(0, a, xf)
+        mflat = torch.zeros(k, dsub * dsub, device=x.device).index_add_(
+            0, a, outer_flat)
+        big_a = cnt[:, None, None] * eye[None] + w * mflat.reshape(
+            k, dsub, dsub)
+        # empty clusters: solve against I (harmless) and keep the old c.
+        big_a = torch.where(cnt[:, None, None] > 0, big_a, eye[None])
+        c_new = torch.linalg.solve(big_a, (1.0 + w) * sx)
+        c = torch.where(cnt[:, None] > 0, c_new, c)
+    return c
+
+
+@no_tf32()
+def anisotropic_refine(x_sub: torch.Tensor, centroids: torch.Tensor,
+                       eta: float, iters: int = 4) -> torch.Tensor:
+    """Per-subspace anisotropic refinement: ``(m, n, dsub)`` training
+    subspaces and ``(m, k, dsub)`` codebooks → refined ``(m, k, dsub)``.
+    Subspaces run one at a time, so the (n, dsub²) outer-product
+    intermediate never scales with m (JAX kmeans.py:440-447)."""
+    return torch.stack([_aniso_refine_single(x_sub[j], centroids[j], eta,
+                                             iters)
+                        for j in range(x_sub.shape[0])])

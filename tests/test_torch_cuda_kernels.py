@@ -1375,3 +1375,109 @@ def test_pregathered_join_on_the_card_matches_the_cpu(engine_dirs, method):
                                         method=method, pvf=4,
                                         impl="budget"))
     assert_same_top_k(out[0][0], out[0][1], out[1][0], out[1][1], atol=1e-4)
+
+
+# ------------------------------------- serving, builders, aniso on the card
+
+@pytest.mark.parametrize("family,kernel", (
+    ("k_nearest_neighbour_pq", ("adc_scan",)),
+    ("k_nearest_neighbour_pq_pv", ("adc_scan_binned",)),
+    # the probe's shape picks the per-query or the grouped kernel
+    ("k_nearest_neighbour_ivfadc_pv", ("budget_adc",
+                                       "budget_adc_grouped"))))
+@pytest.mark.parametrize("front", ("async", "threaded"))
+def test_served_knn_on_the_card_matches_the_engine(engine_dirs, family,
+                                                   kernel, front):
+    """Concurrent /knn requests coalesce into pinned-copy batches on the
+    card (the event-waiting completion path) and answer as the card
+    engine's direct calls do (its PQ + post-verify shortlist is the binned
+    scan's bin survivors, so the CPU engine, with the exact shortlist, is
+    not the reference)."""
+    import threading
+
+    from postgres_word2vec_tpu_torch.server import QueryServer
+    from postgres_word2vec_tpu_torch.server_async import AsyncQueryServer
+    from test_torch_parity_util import assert_same_rows, http_call
+
+    gpu, _ = _engines(engine_dirs)
+    gpu.set_knn_function(family)
+    cls = AsyncQueryServer if front == "async" else QueryServer
+    srv = cls(gpu, port=0, batch_window_ms=20.0).start()
+    try:
+        srv.warmup(k=5)
+        kernels.reset_launch_counts()
+        res = [None] * 12
+
+        def one(j):
+            res[j] = http_call(srv.port, "/knn",
+                               {"query": f"w{7 * j}", "k": 5})
+
+        threads = [threading.Thread(target=one, args=(j,))
+                   for j in range(12)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        launched = kernels.launch_counts()
+        for j, (code, r) in enumerate(res):
+            assert code == 200, r
+        assert any(launched[name] for name in kernel), launched
+        for j, (code, r) in enumerate(res):
+            want = [list(x) for x in gpu.knn(f"w{7 * j}", 5)]
+            assert_same_rows(r["result"], want, 1e-4, f"w{7 * j}")
+    finally:
+        srv.stop()
+
+
+def test_served_knn_in_on_the_card_matches_the_cpu(engine_dirs):
+    from postgres_word2vec_tpu_torch.server_async import AsyncQueryServer
+    from test_torch_parity_util import assert_same_rows, http_call
+
+    gpu, cpu = _engines(engine_dirs)
+    targets = list(range(0, 6000, 4))
+    for e in (gpu, cpu):
+        e.set_knn_in_function("knn_in_pq")
+    srv = AsyncQueryServer(gpu, port=0).start()
+    try:
+        kernels.reset_launch_counts()
+        code, r = http_call(srv.port, "/knn_in",
+                            {"query": "w3", "k": 5, "targets": targets})
+        assert code == 200 and kernels.launch_counts()["adc_scan"] == 1
+        want = [list(x) for x in cpu.knn_in("w3", 5, targets)]
+        assert_same_rows(r["result"], want, 1e-4, "knn_in")
+    finally:
+        srv.stop()
+
+
+def test_streaming_builders_on_the_card_match_the_cpu(engine_dirs):
+    from postgres_word2vec_tpu_torch.models import builders
+    from postgres_word2vec_tpu_torch.models.pq import PQCodebook
+
+    gpu, cpu = _engines(engine_dirs)
+    x = cpu.store.vectors_norm
+    out = []
+    for dev in ("cuda", "cpu"):
+        pq = builders.PQIndexCreator(PQCodebook(
+            *(t.to(dev) for t in cpu.pq.codebook)))
+        ivf = builders.IVFADCIndexCreator(
+            cpu.ivfadc.coarse.centroids.to(dev),
+            PQCodebook(*(t.to(dev) for t in cpu.ivfadc.codebook)))
+        for batch, _ in builders.VectorFeeder(x.to(dev), batch_size=1024):
+            pq.index_batch(batch)
+            ivf.index_batch(batch)
+        out.append((pq.finalize().codes.cpu(), ivf.finalize().row_ids.cpu()))
+    assert (out[0][0] == out[1][0]).float().mean() >= 0.999
+    assert (out[0][1] == out[1][1]).float().mean() >= 0.999
+
+
+def test_anisotropic_refine_on_the_card_matches_the_cpu():
+    from postgres_word2vec_tpu_torch.ops import kmeans
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 5000, 25, generator=g)
+    c0 = x[:, :64].clone()
+    got = kmeans.anisotropic_refine(x.cuda(), c0.cuda(), 4.0, iters=4)
+    want = kmeans.anisotropic_refine(x, c0, 4.0, iters=4)
+    # a point that ties between two centroids may fall either way
+    close = (got.cpu() - want).abs().amax(-1) <= 1e-3
+    assert close.float().mean() >= 0.95

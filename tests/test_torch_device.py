@@ -14,10 +14,12 @@ import torch
 
 from postgres_word2vec_tpu import Freddy as JFreddy
 from postgres_word2vec_tpu import VectorStore as JStore
+from postgres_word2vec_tpu.models import builders as jbuilders
 from postgres_word2vec_tpu.utils import migrate as jmigrate
 
 from postgres_word2vec_tpu_torch import Freddy, PQIndex, VectorStore
 from postgres_word2vec_tpu_torch import api, store as store_mod
+from postgres_word2vec_tpu_torch.models import builders
 from postgres_word2vec_tpu_torch.models.ivfadc import IVFADCIndex
 from postgres_word2vec_tpu_torch.models.ivpq import IVPQIndex
 from postgres_word2vec_tpu_torch.utils import convert, device as device_mod
@@ -50,6 +52,13 @@ def saved(tmp_path_factory):
         for w, row in zip(WORDS, vecs)))
     jmigrate.export_engine(JFreddy(eng.store, ivfadc=eng.ivfadc,
                                    ivpq=eng.ivpq), path / "dump")
+    pq_b = jbuilders.PQIndexCreator(eng.pq.codebook)
+    pq_b.index_batch(vecs[:64])
+    pq_b.checkpoint(path / "pq_ckpt.npz")
+    ivf_b = jbuilders.IVFADCIndexCreator(eng.ivfadc.coarse.centroids,
+                                         eng.ivfadc.codebook)
+    ivf_b.index_batch(vecs[:64])
+    ivf_b.checkpoint(path / "ivfadc_ckpt.npz")
     return path, vecs
 
 
@@ -106,6 +115,23 @@ ENTRY_POINTS = {
     "migrate.import_engine": (
         lambda p, v, **kw: migrate.import_engine(p / "dump", **kw),
         lambda e: e.ivfadc.codes_sorted),
+    "PQIndexCreator.resume": (
+        lambda p, v, **kw: builders.PQIndexCreator.resume(
+            p / "pq_ckpt.npz", **kw),
+        lambda c: c._codes[0]),
+    "IVFADCIndexCreator.resume": (
+        lambda p, v, **kw: builders.IVFADCIndexCreator.resume(
+            p / "ivfadc_ckpt.npz", **kw),
+        lambda c: c._assign[0]),
+    "PQIndexCreator.from_training": (
+        lambda p, v, **kw: builders.PQIndexCreator.from_training(
+            torch.Generator().manual_seed(0), v, m=4, k=16, iters=2, **kw),
+        lambda c: c.codebook.centroids),
+    "IVFADCIndexCreator.from_training": (
+        lambda p, v, **kw: builders.IVFADCIndexCreator.from_training(
+            torch.Generator().manual_seed(0), v, m=4, k=16, k_coarse=4,
+            iters=2, **kw),
+        lambda c: c.coarse_centroids),
 }
 
 
@@ -150,7 +176,7 @@ def test_entry_point_asks_for_the_card_by_default(saved, monkeypatch, name):
         asked.append(device_mod.resolve_device(device))
         return torch.device("cpu")
 
-    for mod in (store_mod, convert, api, migrate):
+    for mod in (store_mod, convert, api, migrate, builders):
         monkeypatch.setattr(mod, "resolve_device", spy)
     call, tensor_of = ENTRY_POINTS[name]
     assert tensor_of(call(*saved)).device.type == "cpu"

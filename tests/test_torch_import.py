@@ -1,5 +1,6 @@
-"""The port never imports JAX (nor the JAX package) and importing it
-initialises no CUDA context and builds no kernel."""
+"""The port never imports JAX (nor the JAX package), aiohttp or
+matplotlib at import time, and importing it initialises no CUDA context
+and builds no kernel; the load driver's client module imports no torch."""
 
 import pkgutil
 import subprocess
@@ -24,21 +25,27 @@ def test_the_port_has_the_slice_modules():
                  "models.exact", "models.pq", "models.ivfadc",
                  "models.ivpq", "utils.shapes",
                  "utils.tracker", "utils.convert", "utils.codec",
-                 "utils.native_io", "utils.migrate", "evaluation.synth",
-                 "evaluation.join_wall", "evaluation.benchutil"):
+                 "utils.native_io", "utils.migrate", "utils.config",
+                 "utils.profiling", "models.builders", "server",
+                 "server_async", "evaluation.synth", "evaluation.join_wall",
+                 "evaluation.benchutil", "evaluation.harness",
+                 "evaluation.plots", "evaluation.html_report",
+                 "evaluation.serving_bench"):
         assert f"postgres_word2vec_tpu_torch.{name}" in mods, name
 
 
 def test_every_port_module_imports_with_jax_blocked():
     code = textwrap.dedent(f"""
         import importlib, sys
-        sys.modules["jax"] = None          # any `import jax` now fails
+        # any `import jax` (aiohttp, matplotlib) now fails
+        for blocked in ("jax", "aiohttp", "matplotlib"):
+            sys.modules[blocked] = None
         for name in {_port_modules()!r}:
             importlib.import_module(name)
         import torch
         from postgres_word2vec_tpu_torch.ops import _build
         assert "postgres_word2vec_tpu" not in sys.modules
-        assert not any(m == "jax" or m.startswith("jax.")
+        assert not any(m.split(".")[0] in ("jax", "aiohttp", "matplotlib")
                        for m, v in sys.modules.items() if v is not None)
         assert not torch.cuda.is_initialized()
         assert _build._lib is None         # no kernel built or loaded
@@ -48,6 +55,22 @@ def test_every_port_module_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+def test_the_load_drivers_client_module_imports_no_torch():
+    """A spawned client process imports only this module: no torch, so it
+    starts fast and touches no CUDA."""
+    code = textwrap.dedent("""
+        import sys
+        import postgres_word2vec_tpu_torch.evaluation.serving_bench as sb
+        assert callable(sb.client_window)
+        assert "torch" not in sys.modules, "torch imported"
+        print("light")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "light"
 
 
 def test_the_build_is_keyed_by_the_sources():

@@ -153,8 +153,12 @@ def test_pq_build_in_the_port(rng):
     _, ids = index.search_pv(q, 5, 20, v)
     hits = sum(len(set(a.tolist()) & set(b.tolist())) for a, b in zip(ids, gt))
     assert hits / gt.numel() >= 0.9
-    with pytest.raises(NotImplementedError):
-        PQIndex.build(g, v, m=12, k=16, aniso_eta=2.0)
+    # anisotropic refinement builds too (ported; JAX parity in
+    # tests/test_torch_aniso.py)
+    aniso = PQIndex.build(g, v, m=12, k=16, train_size=2000, iters=6,
+                          aniso_eta=2.0)
+    assert aniso.codes.shape == (3000, 12)
+    assert int(aniso.codebook.counts.sum()) == 3000 * 12
 
 
 # ------------------------------------------------------------- the slice
@@ -258,14 +262,15 @@ def test_every_jax_engine_method_exists_or_raises(saved_jax_engine):
 
 def test_unported_families_raise(saved_jax_engine):
     """What the slices so far left out raises and names its ROADMAP item:
-    the mesh and anisotropic refinement."""
+    the mesh. Anisotropic refinement, which raised until it was ported,
+    now builds."""
     _, path = saved_jax_engine
     store = Freddy.load(path, device="cpu").store
     with pytest.raises(NotImplementedError, match="sharding"):
         Freddy.build(store, mesh=object())
-    with pytest.raises(NotImplementedError, match="anisotropic"):
-        Freddy.build(store, with_ivfadc=False, with_ivpq=False,
-                     aniso_eta=2.0)
+    eng = Freddy.build(store, with_ivfadc=False, with_ivpq=False,
+                       aniso_eta=2.0, train_size=None, iters=3)
+    assert eng.pq.codes.shape[0] == store.size
 
 
 def test_jax_engine_with_int8_luts_loads_on_a_cuda_engine(saved_jax_engine,

@@ -125,3 +125,146 @@ def test_same_top_k_rejects_a_wrong_id():
     except AssertionError:
         return
     raise AssertionError("a differing strict top-k id was accepted")
+
+
+# ------------------------------------------------------------ serving parity
+
+#: the JAX server tests' engine (tests/test_server.py:11-21): 300 × 16
+#: normal rows, PQ 4×8, IVFADC 4×8 over 6 cells, IVPQ 4×8 over 4 cells
+SERVER_ENGINE = dict(pq_m=4, pq_k=8, ivfadc_m=4, ivfadc_k=8, k_coarse=6,
+                     ivpq_m=4, ivpq_k=8, ivpq_k_coarse=4, train_size=None,
+                     iters=5)
+
+
+def save_server_engine(path):
+    """Build the JAX server tests' engine, save it under ``path`` → the
+    JAX engine."""
+    from postgres_word2vec_tpu import Freddy as JFreddy
+    from postgres_word2vec_tpu import VectorStore as JStore
+
+    rng = np.random.default_rng(13)
+    vecs = rng.normal(size=(300, 16)).astype(np.float32)
+    eng = JFreddy.build(JStore.from_arrays([f"w{i}" for i in range(300)],
+                                           vecs), seed=0, **SERVER_ENGINE)
+    eng.save(path)
+    return eng
+
+
+def http_call(port, path, payload=None, *, method=None, raw=None,
+              timeout=10.0):
+    """One request (POST with a JSON body, or GET without one) → (status,
+    decoded JSON body). ``raw`` sends those bytes as the body instead."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    data = raw if raw is not None else (
+        None if payload is None else json.dumps(payload).encode())
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=data, method=method,
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        body = e.read()
+        try:
+            return e.code, json.loads(body)
+        except ValueError:
+            return e.code, body.decode(errors="replace")
+
+
+_T100 = [f"w{i}" for i in range(100)]
+
+#: one request for every endpoint, in an order whose state changes (config,
+#: prepared targets, statistics, insert) both servers see alike; ``None``
+#: as the payload is a GET
+SERVER_CASES = [
+    ("knn_word", "/knn", {"query": "w10", "k": 3}),
+    ("knn_vector", "/knn", {"query": [0.25] * 8 + [-0.5] * 8, "k": 4}),
+    ("knn_in_words", "/knn_in", {"query": "w3", "k": 4, "targets": _T100}),
+    ("knn_in_ids", "/knn_in", {"query": "w30", "k": 3,
+                               "targets": list(range(50, 250))}),
+    ("knn_batch", "/knn_batch", {"queries": ["w1", "w2", "w3"], "k": 3}),
+    ("config_alpha", "/config", {"set_alpha": 50}),
+    ("knn_join", "/knn_join", {"queries": ["w1", "w2"], "k": 2,
+                               "targets": _T100}),
+    ("prepare_targets", "/prepare_targets", {"name": "dom",
+                                             "targets": _T100}),
+    ("config_join_ivpq", "/config",
+     {"set_knn_join_function": "knn_in_ivpq_batch", "set_method_flag": 1}),
+    ("knn_join_prepared", "/knn_join", {"queries": ["w4", "w5", "w6"],
+                                        "k": 3, "targets": "dom"}),
+    ("analogy", "/analogy", {"w1": "w1", "w2": "w2", "w3": "w3"}),
+    ("analogy_in", "/analogy_in", {"w1": "w1", "w2": "w2", "w3": "w3",
+                                   "targets": _T100}),
+    ("groups", "/groups", {"tokens": [f"w{i}" for i in range(40)],
+                           "group_tokens": ["w100", "w150", "w200"]}),
+    ("cluster", "/cluster", {"tokens": [f"w{i}" for i in range(60)],
+                             "k": 4}),
+    ("tokenize", "/tokenize", {"text": "w1 w2 nope"}),
+    ("tokenize_raw", "/tokenize", {"text": "w1 w2", "raw": True}),
+    ("tokenize_unknown", "/tokenize", {"text": "nope"}),
+    ("statistics", "/statistics", {"name": "s", "domain": _T100}),
+    ("config_knn_pq_pv", "/config",
+     {"set_knn_function": "k_nearest_neighbour_pq_pv", "set_pvf": 5}),
+    ("knn_pq_pv", "/knn", {"query": "w11", "k": 3}),
+    ("config_knn_ivfadc_pv", "/config",
+     {"set_knn_function": "k_nearest_neighbour_ivfadc_pv"}),
+    ("knn_ivfadc_pv", "/knn", {"query": "w12", "k": 3}),
+    ("config_knn_exact", "/config",
+     {"set_knn_function": "k_nearest_neighbour"}),
+    ("insert", "/insert", {"terms": ["w1 w2", "w7 nope"]}),
+    ("knn_inserted", "/knn", {"query": "w1 w2", "k": 2}),
+    ("unknown_endpoint", "/nope", {}),
+    ("unknown_word", "/knn", {"query": "missing_word", "k": 3}),
+    ("unknown_setting", "/config", {"set_bogus": 1}),
+    ("knn_in_no_targets", "/knn_in", {"query": "w3", "k": 3}),
+    ("bad_dim", "/knn", {"query": [0.1, 0.2], "k": 3}),
+    ("join_unknown_set", "/knn_join", {"queries": ["w1"], "k": 2,
+                                       "targets": "nope"}),
+    ("get_unknown", "/nope", None),
+]
+
+
+def assert_same_rows(got, want, tol, what):
+    """Ranked rows (``[word, sim]``, or ``[query, word, sim]`` for joins)
+    agree: the same length, similarities within ``tol``, and the same row
+    at every rank but where the similarities tie within ``tol``: a row may
+    then swap with one it ties with, or differ in a tie at its query's
+    last rank (the k-th place may pick either row)."""
+    assert len(got) == len(want), what
+    gs = np.array([r[-1] for r in got], np.float64)
+    ws = np.array([r[-1] for r in want], np.float64)
+    np.testing.assert_allclose(gs, ws, atol=tol, rtol=0, err_msg=what)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g[:-1] == w[:-1]:
+            continue
+        group = [j for j in range(len(want)) if want[j][:-2] == w[:-2]]
+        tied = [tuple(want[j][:-1]) for j in group
+                if abs(ws[j] - ws[i]) <= tol]
+        assert (tuple(g[:-1]) in tied
+                or abs(ws[i] - ws[group[-1]]) <= tol), (what, i, g, w)
+
+
+def assert_same_response(got, want, tol=1e-5, what=""):
+    """Two servers' JSON answers agree: ranked rows by :func:`_same_rows`,
+    numbers within ``tol``, everything else equal; ``build_s`` (a time) is
+    not compared."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and got.keys() == want.keys(), what
+        for key in want:
+            if key != "build_s":
+                assert_same_response(got[key], want[key], tol,
+                                     f"{what}.{key}")
+    elif (isinstance(want, list) and want and isinstance(want[0], list)
+          and isinstance(want[0][-1], float)):
+        assert_same_rows(got, want, tol, what)
+    elif isinstance(want, list):
+        assert isinstance(got, list) and len(got) == len(want), what
+        for g, w in zip(got, want):
+            assert_same_response(g, w, tol, what)
+    elif isinstance(want, float):
+        assert abs(got - want) <= tol, (what, got, want)
+    else:
+        assert got == want, (what, got, want)
