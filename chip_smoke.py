@@ -85,7 +85,20 @@ a user calls, and holds every hand-written kernel to its plain version:
     recall@10 of PQ and PQ + PV20);
 11. the evaluation harness: ``time_precision_sweep`` (methods 0-2, pvf 1,
     5, 20), ``confidence_eval``, ``target_count_eval`` and an HTML report;
-12. last, so that the numbers above are unchanged, slice 3's online
+12. row sharding (slice 11) on the same store and indexes: a second
+    engine sharded over meshes of 4 × 1 and 2 × 2 entries of the one card
+    (``enable_sharding``); exact, PQ (float and int8 LUTs), PQ + PV20,
+    IVFADC, IVFADC + PV20 and in-set exact and PQ at B = 256, k = 10, held
+    to the unsharded engine; IVFADC's escalation at k = 3,072 from w = 1
+    held, query by query, to the tiled probe at its last width; the join
+    at the 100,000 prepared targets (alpha 200, methods 0, 1, 2) through
+    the engine (the dense round, K2) against the unsharded dense join, the
+    budget round (K6/K7, K9/K10 at ``block_t`` 128) against the dense
+    round, and the whole budget join at 1,024 queries; K2, K3, K6, K7, K9
+    and K10 at the shard shapes against their plain versions; each family
+    timed beside its unsharded twin (R shards of one card: the
+    shard-and-merge overhead, not multi-GPU scaling);
+13. last, so that the numbers above are unchanged, slice 3's online
     insert: ``insert_batch`` of 10,240 new two-word terms in 4 batches of
     2,560 (the fourth crosses the IVFADC tail's 8,192 rows, so the tail
     is spliced into the lists on the card), a standalone int8 exact index
@@ -176,6 +189,10 @@ BUILDER_BATCH = 262_144
 # below the measured values (the plain OPQ build's in brackets, PR 9 run 2)
 ANISO_ETA = 4.0
 ANISO_FLOORS = {"pq@10": 0.3, "pq_pv20@10": 0.85}       # (0.6043, 0.9969)
+# the sharding phase: its meshes (rows, q) of entries of the one card, and
+# a k near the mean IVFADC cell, so that w = 1 leaves some queries short
+SHARD_MESHES = ((4, 1), (2, 2))
+SHARD_ESCALATE_K = 3072
 # the insert phase: new two-word terms, in batches
 INSERT_TERMS, INSERT_BATCH = 10_240, 2_560
 INSERT_FLOORS = {"pq_pv20_self@5": 0.9, "ivfadc_pv20_self@5": 0.8}
@@ -213,7 +230,7 @@ def stop_children() -> None:
             os.kill(pid, signal.SIGKILL)
             os.waitpid(pid, 0)
     check(not left, f"processes still running at the end: {left}")
-    log("[13] no child process left")
+    log("[14] no child process left")
 
 
 def gpu_line() -> str:
@@ -300,10 +317,15 @@ def device_ms(torch, run, names: tuple[str, ...], n: int = 20) -> float:
         check(run() == 0, "a sweep launch failed")
 
     pat = re.compile(r"(?<![\w])(" + "|".join(names) + r")(?![\w])")
-    ts = [e.self_device_time_total
-          for e in _traced(torch, launch, n).key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and pat.search(e.key)]
+    # a trace has come back without the kernel's records though every
+    # launch returned 0 (once, in K7's sweep): trace again
+    for _ in range(3):
+        ts = [e.self_device_time_total
+              for e in _traced(torch, launch, n).key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and pat.search(e.key)]
+        if ts:
+            break
     check(ts, f"the profiler recorded none of {names}")
     return sum(ts) / 1e3 / n
 
@@ -707,7 +729,7 @@ def insert_phase(torch, ExactIndex, eng, exact8, run_path,
                "insert_s": dt, "extended_s": t_ext, "spliced": bool(spliced),
                "ivfadc_tail": eng.ivfadc.tail_count, **selfrec}
         out["batches"].append(row)
-        log(f"[12] insert batch {b0 // INSERT_BATCH + 1}: {n_ins} terms in "
+        log(f"[13] insert batch {b0 // INSERT_BATCH + 1}: {n_ins} terms in "
             f"{dt:.3f} s ({n_ins / dt:.0f} terms/s), int8 exact extended() "
             f"{t_ext * 1e3:.2f} ms, IVFADC tail {eng.ivfadc.tail_count}"
             f"{' (spliced)' if spliced else ''}, " + ", ".join(
@@ -1501,6 +1523,277 @@ def harness_phase(torch, eng, words, card: str) -> dict:
     return {"sweep": recs, "confidence": conf,
             "target_count_divergence": tc["mean_abs_rel_divergence"],
             "report_bytes": size, "seconds": took}
+
+
+def sharding_phase(torch, eng, store, q256, qjoin, jwords, ph100k, errs,
+                   run_path, path_launches, card) -> dict:
+    """Phase 12: row sharding (slice 11) on R shards of the one card. A
+    second engine over the same store and indexes, sharded over each mesh
+    of SHARD_MESHES; every sharded family is held to the unsharded engine
+    on the same card, the kernels of the sharded paths to their plain
+    versions at the shard shapes, and each family timed beside its
+    unsharded twin. R shards of one card measure the shard-and-merge
+    overhead, not multi-GPU scaling."""
+    import dataclasses
+    from postgres_word2vec_tpu_torch import Freddy
+    from postgres_word2vec_tpu_torch.models import ivpq as ivpq_mod
+    from postgres_word2vec_tpu_torch.ops import kernels, kmeans, lut
+    from postgres_word2vec_tpu_torch.parallel import sharding
+
+    dev = torch.device("cuda", 0)
+    saved = (dataclasses.replace(eng.params), dict(eng.dispatch))
+    ivf, ivpq = eng.ivfadc, eng.ivpq
+    stats = eng.statistics["t100k"]
+    tids = ph100k.target_ids
+    tmask = torch.ones(tids.shape, dtype=torch.bool, device=dev)
+    jq, jw = qjoin[:EVAL_Q], jwords[:EVAL_Q]
+    cc, cb = ivpq.coarse.centroids, ivpq.codebook.centroids
+    sizes = (ivf.cell_offsets[1:] - ivf.cell_offsets[:-1]).long()
+    _, near = torch.topk(kmeans.pairwise_sqdist(q256, ivf.coarse.centroids),
+                         4, largest=False)
+    cum = sizes[near].cumsum(1)
+    # each query's last probe width under escalation (w 1, 2, 4): the first
+    # whose nearest cells hold SHARD_ESCALATE_K rows
+    w_final = torch.where(cum[:, 0] >= SHARD_ESCALATE_K, 1, torch.where(
+        cum[:, 1] >= SHARD_ESCALATE_K, 2, 4))
+    out = {}
+    for rows, qx in SHARD_MESHES:
+        tag = f"{rows}x{qx}"
+        cells = rows * qx
+        mesh = sharding.make_mesh([dev] * cells, rows=rows, q=qx)
+        eng_s = Freddy(store, pq=eng.pq, ivfadc=ivf, ivpq=ivpq,
+                       params=dataclasses.replace(eng.params))
+        eng_s.statistics = eng.statistics
+        eng_s.prepared_targets = eng.prepared_targets
+        torch.cuda.synchronize()
+        mem0, t0 = torch.cuda.memory_allocated(), time.perf_counter()
+        eng_s.enable_sharding(mesh)
+        torch.cuda.synchronize()
+        bundle = eng_s._shard["ivf_bundle"]
+        cap, m = bundle["list_cap"], ivf.codebook.centroids.shape[0]
+        log(f"[12] mesh {tag} on {dev}: enable_sharding "
+            f"{time.perf_counter() - t0:.2f} s, "
+            f"+{(torch.cuda.memory_allocated() - mem0) / 2**30:.2f} GiB; "
+            f"IVFADC list_cap {cap}: the row-1 probe's gathered codes at "
+            f"B={EVAL_Q} w=3 are {EVAL_Q * 3 * cap * m:,} (w=4 at k="
+            f"{SHARD_ESCALATE_K}: {EVAL_Q * 4 * cap * m:,}), in query chunks "
+            f"of at most 2**26")
+        for e in (eng, eng_s):
+            e.set_w(3)
+            e.set_pvf(20)
+            e.set_alpha(200)
+            e.set_confidence_value(0.8)
+            e.set_statistics_table("t100k")
+        eng.set_pv_shortlist("exact")       # the sharded PV's shortlist
+        times, launched = {}, {}
+
+        def compare(name, sharded, plain, atol, kernel=None):
+            path = f"shard{tag}_{name}"
+            d_s, i_s = run_path(path, sharded)
+            launched[name] = path_launches[path]
+            if kernel is not None:
+                check(path_launches[path].get(kernel, 0) == cells,
+                      f"{path} launched {path_launches[path]}, not "
+                      f"{kernel} once per mesh cell ({cells})")
+            d_u, i_u = plain()
+            same_top_k(torch, d_s, i_s, d_u, i_u, atol, f"mesh {tag} {name}")
+            times[name] = {
+                "ms_per_query": p50(cuda_ms(torch, sharded, reps=5)) / EVAL_Q,
+                "unsharded_ms_per_query": p50(cuda_ms(torch, plain,
+                                                      reps=5)) / EVAL_Q}
+
+        for name, family, lut_dtype, atol, kernel in (
+                ("exact", "k_nearest_neighbour", "bf16", 1e-5, None),
+                ("pq", "k_nearest_neighbour_pq", "bf16", 1e-5, "adc_scan"),
+                ("pq_int8", "k_nearest_neighbour_pq", "int8", 1e-5,
+                 "adc_scan_int8"),
+                ("pq_pv20", "k_nearest_neighbour_pq_pv", "bf16", 1e-5,
+                 "adc_scan"),
+                ("ivfadc", "k_nearest_neighbour_ivfadc", "bf16", 1e-4, None),
+                ("ivfadc_pv20", "k_nearest_neighbour_ivfadc_pv", "bf16",
+                 1e-5, None)):
+            for e in (eng, eng_s):
+                e.set_knn_function(family)
+                e.set_pq_lut_dtype(lut_dtype)
+            compare(name, lambda: eng_s.knn_matrix(q256, K),
+                    lambda: eng.knn_matrix(q256, K), atol, kernel)
+        for e in (eng, eng_s):
+            e.set_pq_lut_dtype("bf16")
+        for name, impl, kernel in (("in_exact", "knn_in_exact", None),
+                                   ("in_pq", "knn_in_pq", "adc_scan")):
+            for e in (eng, eng_s):
+                e.set_knn_in_function(impl)
+            compare(name, lambda: eng_s.knn_in_matrix(q256, K, tids, tmask),
+                    lambda: eng.knn_in_matrix(q256, K, tids, tmask), 1e-5,
+                    kernel)
+
+        # IVFADC's escalation: at k = SHARD_ESCALATE_K from w = 1 some
+        # queries widen; each is held to the tiled probe at its last width
+        d_e, i_e = run_path(f"shard{tag}_ivfadc_escalate",
+                            lambda: sharding.sharded_ivfadc_adaptive(
+                                mesh, q256, bundle, k=SHARD_ESCALATE_K, w=1))
+        for w in (1, 2, 4):
+            sel = torch.nonzero(w_final == w).flatten()
+            if sel.numel():
+                d_u, i_u = ivf.search(q256[sel], SHARD_ESCALATE_K, w=w)
+                same_top_k(torch, d_e[sel], i_e[sel], d_u, i_u, 1e-4,
+                           f"mesh {tag} IVFADC escalated to w={w}")
+        escalated = int((w_final > 1).sum())
+        check(escalated > 0, f"mesh {tag}: no query escalated at k="
+              f"{SHARD_ESCALATE_K}")
+
+        # the join at 100k prepared targets, alpha 200, t100k statistics
+        join = {}
+        for method in (0, 1, 2):
+            eng_s.set_method_flag(method)
+            path = f"shard{tag}_join_m{method}"
+            rows_ = run_path(path, lambda: eng_s.knn_in_ivpq_batch(
+                jw, JOIN_K, "t100k"))
+            if method != 1:
+                check(path_launches[path].get("adc_scan", 0) > 0,
+                      f"{path} did not launch adc_scan")
+            launched[f"join_m{method}"] = path_launches[path]
+            kw = dict(statistics=stats, alpha=200, pvf=20, method=method,
+                      confidence=0.8)
+            d_s, i_s = sharding.sharded_ivpq_join(
+                mesh, ivpq, jq, JOIN_K, tids, vectors=store.vectors_norm,
+                **kw)
+            check(torch.equal(rows_to_ids(torch, store, rows_, jw, JOIN_K),
+                              i_s.cpu()),
+                  f"{path}: the engine's rows differ from the sharded join")
+            d_u, i_u = ivpq.search_join(jq, JOIN_K, prepared=ph100k,
+                                        impl="dense", **kw)
+            if method == 2:
+                # per-shard shortlists: at least as good, and exact
+                check(bool((d_s <= d_u + 1e-5).all()),
+                      f"{path}: worse than the unsharded join")
+                true = ((jq[:, None, :] - store.vectors_norm[
+                    i_s.clamp_min(0)]) ** 2).sum(-1)
+                check(bool(torch.allclose(d_s[i_s >= 0], true[i_s >= 0],
+                                          atol=1e-4)),
+                      f"{path}: a distance is not the row's exact one")
+            else:
+                same_top_k(torch, d_s, i_s, d_u, i_u, 1e-5,
+                           f"mesh {tag} join method {method}")
+            # budget round against dense round, round 1
+            vecs = store.vectors_norm[tids] if method else None
+            tiles = sharding.shard_join_tiles(ivpq, tids, tmask, vecs, mesh,
+                                              with_vecs=method == 1)
+            targets = sharding.shard_join_targets(ivpq, tids, tmask, vecs,
+                                                  mesh)
+            path = f"shard{tag}_join_budget_m{method}"
+            d_b, i_b, found = run_path(
+                path, lambda: sharding.sharded_ivpq_join_round_budget(
+                    mesh, jq, cc, cb, tiles, stats, k=JOIN_K, alpha=200,
+                    pvf=20, method=method, confidence=0.8))
+            launched[f"join_budget_m{method}"] = path_launches[path]
+            d_d, i_d, retrieved = sharding.sharded_ivpq_join_round(
+                mesh, jq, cc, cb, statistics=stats, k=JOIN_K, alpha=200,
+                pvf=20, method=method, confidence=0.8, **targets)
+            full = found >= retrieved
+            tol = 1e-2 if method == 1 else 1e-5     # K9/K10 read bf16 rows
+            if full.any():
+                same_top_k(torch, d_b[full], i_b[full], d_d[full], i_d[full],
+                           tol, f"mesh {tag} budget vs dense, method "
+                           f"{method}")
+            if method != 2 and (~full).any():
+                check(bool((d_b[~full] >= d_d[~full] - tol).all()),
+                      f"mesh {tag} method {method}: a budget round cut "
+                      f"short beat the dense round")
+            big = qjoin[:1024]
+            path = f"shard{tag}_join_budget_full_m{method}"
+            run_path(path, lambda: sharding.sharded_ivpq_join(
+                mesh, ivpq, big, JOIN_K, tids, vectors=store.vectors_norm,
+                impl="budget", **kw))
+            launched[f"join_budget_full_m{method}"] = path_launches[path]
+            join[f"m{method}"] = {
+                "full_coverage_share": float(full.float().mean()),
+                "p_budget": sharding.join_p_budget(mesh, tiles, JOIN_K, 200),
+                "ms_per_query_dense": p50(cuda_ms(torch, lambda: eng_s
+                                                  .knn_in_ivpq_batch(
+                                                      jw, JOIN_K, "t100k"),
+                                                  reps=3)) / EVAL_Q,
+                "unsharded_ms_per_query_dense": p50(cuda_ms(
+                    torch, lambda: ivpq.search_join(
+                        jq, JOIN_K, prepared=ph100k, impl="dense", **kw),
+                    reps=3)) / EVAL_Q}
+            # the budget kernels at this shard's tiles, block_t 128
+            jt = tiles["jt"][0][dev]
+            plan, *_ = ivpq_mod.probe_tiles(
+                jq, cc, stats, jt, JOIN_K, 200, 0.8,
+                join["m%d" % method]["p_budget"], tiles["t_real"],
+                tiles["cell_counts"])
+            what = (f"mesh {tag} shard 0 join B={EVAL_Q} "
+                    f"P={plan.shape[1]} block_t={jt.block_t}")
+            if method == 0:
+                luts = lut.build_luts(jq, cb)
+                want = kernels.budget_adc_plain(luts, jt.codes_t, jt.rowterm,
+                                                plan, block_t=jt.block_t)
+                for name, got in (
+                        ("budget_adc", kernels.budget_adc(
+                            luts, jt.codes_t, jt.rowterm, plan,
+                            block_t=jt.block_t)),
+                        ("budget_adc_grouped", kernels.budget_adc_grouped(
+                            luts, jt.codes_t, jt.rowterm, plan,
+                            block_t=jt.block_t, rows=32))):
+                    err = budget_err(torch, got, want, name, what)
+                    check(err == 0.0, f"{name} {what}: err {err}, not equal")
+                    errs[name] = max(errs[name], err)
+            elif method == 1:
+                want = kernels.budget_exact_plain(jq, jt.vecs, jt.rownorm,
+                                                  plan, block_t=jt.block_t)
+                for name, got in (
+                        ("budget_exact", kernels.budget_exact(
+                            jq, jt.vecs, jt.rownorm, plan,
+                            block_t=jt.block_t)),
+                        ("budget_exact_grouped",
+                         kernels.budget_exact_grouped(
+                             jq, jt.vecs, jt.rownorm, plan,
+                             block_t=jt.block_t, rows=32))):
+                    errs[name] = max(errs[name], budget_err(
+                        torch, got, want, name, what))
+            del tiles, targets
+        # K2 and K3 at a shard's codes
+        luts = eng_s._mesh_luts(eng.pq, q256)
+        codes_t = eng_s._shard["pq_codes"].local(rows - 1)
+        ql, sc = kernels.quantize_luts_int8(luts)
+        for name, got, want in (
+                ("adc_scan", kernels.adc_scan(luts, codes_t),
+                 kernels.adc_scan_plain(luts, codes_t)),
+                ("adc_scan_int8", kernels.adc_scan_int8(ql, sc, codes_t),
+                 kernels.adc_scan_plain(ql, codes_t, scale=sc))):
+            check(torch.equal(got, want), f"{name} at mesh {tag}'s shard "
+                  f"{tuple(codes_t.shape)} differs from the plain version")
+            errs[name] = max(errs[name], float((got - want).abs().max()))
+        del got, want, luts, ql, sc
+        kinds = {}
+        for counts in launched.values():
+            for name, v in counts.items():
+                kinds[name] = kinds.get(name, 0) + v
+        for pair in (("budget_adc", "budget_adc_grouped"),
+                     ("budget_exact", "budget_exact_grouped")):
+            check(any(kinds.get(n, 0) for n in pair),
+                  f"mesh {tag}: the sharded budget join launched neither "
+                  f"of {pair}: {kinds}")
+        log(f"[12] R shards on one H100: shard-and-merge overhead, not "
+            f"multi-GPU scaling (mesh {tag}, {card}): " + ", ".join(
+                f"{n} {t['ms_per_query']:.5f} vs unsharded "
+                f"{t['unsharded_ms_per_query']:.5f} ms/query"
+                for n, t in times.items()) + "; join " + ", ".join(
+                f"{n} dense {j['ms_per_query_dense']:.5f} vs unsharded "
+                f"{j['unsharded_ms_per_query_dense']:.5f} ms/query, budget "
+                f"P={j['p_budget']} full coverage "
+                f"{j['full_coverage_share']:.3f}"
+                for n, j in join.items()))
+        log(f"[12] mesh {tag}: launches per sharded call {launched}; "
+            f"{escalated} of {EVAL_Q} queries escalated at k="
+            f"{SHARD_ESCALATE_K}")
+        out[tag] = {"times": times, "join": join, "launches": launched,
+                    "escalated": escalated}
+        del eng_s, bundle
+        torch.cuda.empty_cache()
+    eng.params, eng.dispatch = saved
+    return out
 
 
 def main() -> int:
@@ -2513,10 +2806,16 @@ def main() -> int:
     log(f"[9-11] builders, anisotropic and harness phases took "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # ------------------------------------------------------ 12: insert
+    # ------------------------------------------------------ 12: sharding
+    t0 = time.perf_counter()
+    sharded = sharding_phase(torch, eng, store, q256, qjoin, jwords, ph100k,
+                             errs, run_path, path_launches, card)
+    log(f"[12] sharding phase took {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------------ 13: insert
     inserted = insert_phase(torch, ExactIndex, eng, exact8, run_path,
                             path_launches, card)
-    log(f"[12] path after_insert launched {path_launches['after_insert']}")
+    log(f"[13] path after_insert launched {path_launches['after_insert']}")
     launches = tally()
 
     summary = {"kernels": [
@@ -2528,11 +2827,12 @@ def main() -> int:
          "library_ms": library_ms[k.name]}
         for k in kernels.KERNELS.values()]}
     stop_children()
-    log(f"[13] the whole run took {time.perf_counter() - started:.1f} s")
+    log(f"[14] the whole run took {time.perf_counter() - started:.1f} s")
     log(json.dumps({"recall": rec, "paths_ms_per_query": times,
                     "insert": inserted, "engine": engine,
                     "serving": serving, "builders": built_rows,
                     "aniso": aniso, "harness": evaluation,
+                    "sharding": sharded,
                     "path_launches": path_launches,
                     "sweep_ms": sweep, "budget_adc_join_ms": k6_ms,
                     "budget_adc_join_bounds": k6_bounds,

@@ -2,9 +2,9 @@
 ``postgres_word2vec_tpu``.
 
 The JAX package beside it stays the reference; this package mirrors its
-layout (``ops/``, ``models/``, ``utils/``, ``evaluation/``, ``store.py``,
-``api.py``, ``server.py``, ``server_async.py``) so each counterpart sits at
-the same path. It imports torch and numpy and never JAX. Importing it
+layout (``ops/``, ``models/``, ``parallel/``, ``utils/``, ``evaluation/``,
+``store.py``, ``api.py``, ``server.py``, ``server_async.py``) so each
+counterpart sits at the same path. It imports torch and numpy and never JAX. Importing it
 initialises no CUDA context and builds or loads no kernel: the
 hand-written Hopper kernels (``csrc/``) are built at their first launch.
 
@@ -18,8 +18,9 @@ exact, PQ (with anisotropic refinement), IVFADC and IVPQ index families
 with the int8 configuration, online insert and the streaming builders
 (``models/builders.py``); the whole ``Freddy`` engine — kNN, batch, in-set
 kNN and joins, analogy, grouping, clustering, tokenize, statistics,
-autotune, warmup, save and load — but sharding; FREDDY dump import and
-export (``utils/migrate.py``); the serving runtime (``server.py``,
+autotune, warmup, save and load, row sharding over a device mesh
+(``parallel/sharding.py``); FREDDY dump import and export
+(``utils/migrate.py``); the serving runtime (``server.py``,
 ``server_async.py``) and the evaluation harness (``evaluation/``).
 """
 

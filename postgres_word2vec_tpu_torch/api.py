@@ -1,4 +1,4 @@
-"""FREDDY-compatible engine — the whole engine but sharding.
+"""FREDDY-compatible engine.
 
 Counterpart of ``postgres_word2vec_tpu/api.py``, from a ``VectorStore``
 through ``Freddy.build``:
@@ -25,18 +25,18 @@ through ``Freddy.build``:
 - analogy (3CosAdd, 3CosMul, pair direction; PQ-, IVFADC- and
   IVPQ-accelerated and in-set variants), grouping (exact and on PQ codes),
   clustering (exact, PQ, IVPQ joins), ``tokenize`` / ``tokenize_raw``;
-- ``autotune``, ``autotune_join`` and ``warmup``.
+- ``autotune``, ``autotune_join`` and ``warmup``;
+- row sharding, ``enable_sharding`` (or ``mesh=`` in ``build`` / ``load``):
+  the vector, PQ code and IVFADC tables split over the rows of a device
+  mesh (``parallel/sharding.py``) and the kNN, in-set and join cores
+  routed through the sharded searches.
 
 The dispatch registry (sql:78-132), runtime parameters (sql:188-202),
 result shapes (``(word, similarity)`` rows, ``(query, word, similarity)``
 for batches and joins, similarity = 1 − d²/2, sql:511) and the on-disk
 engine directory are the JAX engine's, so a directory saved by the JAX
-``Freddy.save`` loads here and the other way round.
-
-The one method of the JAX engine not ported, ``enable_sharding``, exists
-here and raises ``NotImplementedError`` naming its ROADMAP.md item
-(:data:`NOT_PORTED`); ``mesh=`` raises likewise. Nothing falls back to
-something else.
+``Freddy.save`` loads here and the other way round. Every method of the
+JAX engine is ported (:data:`NOT_PORTED` is empty).
 """
 
 from __future__ import annotations
@@ -59,6 +59,7 @@ from postgres_word2vec_tpu_torch.models.pq import PQIndex
 from postgres_word2vec_tpu_torch.ops import kernels, lut
 from postgres_word2vec_tpu_torch.ops import vector_ops as vo
 from postgres_word2vec_tpu_torch.ops.vector_ops import no_tf32
+from postgres_word2vec_tpu_torch.parallel import sharding
 from postgres_word2vec_tpu_torch.store import VectorStore
 from postgres_word2vec_tpu_torch.utils import convert
 from postgres_word2vec_tpu_torch.utils.device import resolve_device
@@ -93,9 +94,6 @@ DEFAULT_DISPATCH = {
     "groups": "grouping_func",
     "cluster": "cluster_exact",
 }
-
-_SHARDING = "ROADMAP.md queue 1, item 11 (multi-GPU sharding)"
-
 
 class NoMatrixCore(LookupError):
     """The dispatched ``knn_in`` impl has no fixed-shape batched matrix
@@ -137,6 +135,31 @@ class Freddy:
         self.track_stages = False
         self.exact = ExactIndex(store.vectors_norm, exact_dtype,
                                 approx=exact_approx)
+        #: the device mesh of :meth:`enable_sharding`, None unsharded
+        self.mesh: sharding.Mesh | None = None
+        self._shard: dict = {}
+
+    # ------------------------------------------------------------ sharding
+    def enable_sharding(self, mesh: sharding.Mesh) -> None:
+        """Sharded mode (JAX api.py:157-178): the normalized vectors
+        (zero-padded to a multiple of the mesh's rows, padding masked), the
+        PQ codes and the IVFADC inverted lists are split over the mesh's
+        "rows" axis (``parallel/sharding.py``), and the exact, PQ, PQ-PV,
+        IVFADC and IVFADC-PV kNN cores, the in-set cores (and so the exact
+        join) and the IVPQ join route through the sharded searches. The
+        other methods keep the unsharded indexes. A mesh of R entries of
+        one card runs R shards on it."""
+        rows = mesh.shape[sharding.ROWS_AXIS]
+        vpad, n_valid = sharding.pad_rows(self.store.vectors_norm, rows)
+        self._shard = {"vectors": sharding.shard_rows(vpad, mesh),
+                       "valid": n_valid}
+        if self.pq is not None:
+            cpad, _ = sharding.pad_rows(self.pq.codes, rows)
+            self._shard["pq_codes"] = sharding.shard_codes(cpad, mesh)
+        if self.ivfadc is not None:
+            self._shard["ivf_bundle"] = sharding.shard_ivfadc(self.ivfadc,
+                                                              mesh)
+        self.mesh = mesh
 
     # ------------------------------------------------------------- builders
     @classmethod
@@ -159,9 +182,8 @@ class Freddy:
         defaults from index_creation/config/*.json; the default PQ build
         applies OPQ). ``ivpq_coarse_positions=1`` is the flat coarse
         quantizer. Each family draws from its own generator seeded from
-        ``seed``. ``mesh`` (sharding) is not ported and raises."""
-        if mesh is not None:
-            raise NotImplementedError(f"mesh: {_SHARDING}")
+        ``seed``. ``mesh``: the engine comes up sharded over it
+        (:meth:`enable_sharding`)."""
         base = dict(pq_m=12, pq_k=256, ivfadc_m=12, ivfadc_k=256,
                     ivpq_m=30, ivpq_k=32, iters=10, init="sample",
                     opq_iters=10)
@@ -195,8 +217,11 @@ class Freddy:
             gen(2), vecs, m=cfg["ivpq_m"], k=cfg["ivpq_k"],
             k_coarse=ivpq_k_coarse, coarse_positions=ivpq_coarse_positions,
             **common) if with_ivpq else None
-        return cls(store, pq=pq, ivfadc=ivf, ivpq=ivpq,
-                   exact_dtype=exact_dtype, exact_approx=exact_approx)
+        eng = cls(store, pq=pq, ivfadc=ivf, ivpq=ivpq,
+                  exact_dtype=exact_dtype, exact_approx=exact_approx)
+        if mesh is not None:
+            eng.enable_sharding(mesh)
+        return eng
 
     # ----------------------------------------------------- config setters
     # (sql:21-75: plain attribute writes kept as methods for API parity.)
@@ -237,10 +262,19 @@ class Freddy:
         """Select the post-verification shortlist policy: "auto" (bin
         survivors of the binned scan on the kernel path when k·pvf ≥ 100,
         exact otherwise), "exact", or "approx". The final re-rank is exact
-        either way (:meth:`models.pq.PQIndex.search_pv`)."""
+        either way (:meth:`models.pq.PQIndex.search_pv`). Sharded PQ-PV
+        always takes the exact per-shard shortlist, so under a mesh a
+        policy other than "auto" warns that it has no effect there."""
         if policy not in ("auto", "exact", "approx"):
             raise ValueError(f"pv_shortlist must be auto|exact|approx, "
                              f"got {policy!r}")
+        if policy != "auto" and self.mesh is not None:
+            import warnings
+            warnings.warn(
+                "pv_shortlist has no effect on mesh-sharded PQ paths "
+                "(the sharded PV program always uses the per-shard exact "
+                "shortlist); it applies when sharding is disabled.",
+                stacklevel=2)
         self.params.pv_shortlist = policy
 
     def set_statistics_table(self, name: str | None) -> None:
@@ -374,9 +408,36 @@ class Freddy:
         """Generic kNN façade (sql:204-214) → [(word, similarity), …]."""
         return getattr(self, self.dispatch["knn"])(query, k)
 
-    # Per-family batched cores: (B, d) query matrix → (dists, ids).
+    def _pad_q(self, q: torch.Tensor) -> tuple[torch.Tensor, int]:
+        """The query batch zero-padded to a multiple of the mesh's q axis
+        → (padded, the batch size)."""
+        qx = self.mesh.shape[sharding.Q_AXIS]
+        b = q.shape[0]
+        pad = (-b) % qx
+        if pad:
+            q = torch.cat([q, q.new_zeros(pad, q.shape[1])])
+        return q, b
+
+    def _mesh_luts(self, pq: PQIndex, qp: torch.Tensor) -> torch.Tensor:
+        """LUTs for the sharded ADC searches, the OPQ rotation applied."""
+        return lut.build_luts(pq._rotate(qp), pq.codebook.centroids)
+
+    def _mesh_lut_dtype(self) -> str:
+        """LUT arithmetic of the sharded ADC scans: ``pq_lut_dtype`` on a
+        CUDA engine (K3 for "int8"), float LUTs on the CPU, which has no
+        quantized variant — :meth:`_pq_impl`'s rule."""
+        return "int8" if self._pq_impl() == "kernel_int8" else "bf16"
+
+    # Per-family batched cores: (B, d) query matrix → (dists, ids), through
+    # the sharded searches under a mesh.
     def _exact_knn_core(self, q: torch.Tensor, k: int
                         ) -> tuple[torch.Tensor, torch.Tensor]:
+        if self.mesh is not None:
+            qp, b = self._pad_q(q)
+            d, i = sharding.sharded_exact_top_k(
+                self.mesh, qp, self._shard["vectors"], k,
+                valid_rows=self._shard["valid"])
+            return d[:b], i[:b]
         return self.exact.search(q, k)
 
     def _pq_impl(self) -> str | None:
@@ -390,12 +451,27 @@ class Freddy:
 
     def _pq_knn_core(self, q: torch.Tensor, k: int
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-        return self._require(self.pq, "PQ").search(q, k,
-                                                   impl=self._pq_impl())
+        pq = self._require(self.pq, "PQ")
+        if self.mesh is not None:
+            qp, b = self._pad_q(q)
+            d, i = sharding.sharded_adc_top_k(
+                self.mesh, self._mesh_luts(pq, qp), self._shard["pq_codes"],
+                k, valid_rows=pq.size, lut_dtype=self._mesh_lut_dtype())
+            return d[:b], i[:b]
+        return pq.search(q, k, impl=self._pq_impl())
 
     def _pq_pv_knn_core(self, q: torch.Tensor, k: int
                         ) -> tuple[torch.Tensor, torch.Tensor]:
         pq = self._require(self.pq, "PQ")
+        if self.mesh is not None:
+            qp, b = self._pad_q(q)
+            cd, ci = sharding.sharded_adc_top_k(
+                self.mesh, self._mesh_luts(pq, qp), self._shard["pq_codes"],
+                k * self.params.pvf, valid_rows=pq.size,
+                lut_dtype=self._mesh_lut_dtype())
+            d, i = sharding.sharded_post_verify(
+                self.mesh, qp, cd, ci, self._shard["vectors"], k)
+            return d[:b], i[:b]
         return pq.search_pv(q, k, self.params.pvf, self.store.vectors_norm,
                             impl=self._pq_impl(),
                             shortlist=self.params.pv_shortlist)
@@ -403,11 +479,25 @@ class Freddy:
     def _ivfadc_knn_core(self, q: torch.Tensor, k: int
                          ) -> tuple[torch.Tensor, torch.Tensor]:
         ivf = self._require(self.ivfadc, "IVFADC")
+        if self.mesh is not None:
+            qp, b = self._pad_q(q)
+            d, i = sharding.sharded_ivfadc_adaptive(
+                self.mesh, qp, self._shard["ivf_bundle"], k=k,
+                w=self.params.w)
+            return d[:b], i[:b]
         return ivf.search_adaptive(q, k, w=self.params.w)
 
     def _ivfadc_pv_knn_core(self, q: torch.Tensor, k: int
                             ) -> tuple[torch.Tensor, torch.Tensor]:
         ivf = self._require(self.ivfadc, "IVFADC")
+        if self.mesh is not None:
+            qp, b = self._pad_q(q)
+            cd, ci = sharding.sharded_ivfadc_adaptive(
+                self.mesh, qp, self._shard["ivf_bundle"],
+                k=k * self.params.pvf, w=self.params.w)
+            d, i = sharding.sharded_post_verify(
+                self.mesh, qp, cd, ci, self._shard["vectors"], k)
+            return d[:b], i[:b]
         return ivf.search_pv(q, k, self.params.pvf, self.store.vectors_norm,
                              w=self.params.w)
 
@@ -486,12 +576,24 @@ class Freddy:
     def _exact_in_core(self, q: torch.Tensor, k: int, tids: torch.Tensor,
                        tmask: torch.Tensor
                        ) -> tuple[torch.Tensor, torch.Tensor]:
+        if self.mesh is not None:
+            qp, b = self._pad_q(q)
+            d, i = sharding.sharded_exact_in(
+                self.mesh, qp, self._shard["vectors"], tids, tmask, k)
+            return d[:b], i[:b]
         return self.exact.search_in(q, k, tids, tmask)
 
     def _pq_in_core(self, q: torch.Tensor, k: int, tids: torch.Tensor,
                     tmask: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-        return self._require(self.pq, "PQ").search_in(q, k, tids, tmask)
+        pq = self._require(self.pq, "PQ")
+        if self.mesh is not None:
+            qp, b = self._pad_q(q)
+            d, i = sharding.sharded_adc_in(
+                self.mesh, self._mesh_luts(pq, qp), self._shard["pq_codes"],
+                tids, tmask, k, lut_dtype=self._mesh_lut_dtype())
+            return d[:b], i[:b]
+        return pq.search_in(q, k, tids, tmask)
 
     #: dispatch impl → batched matrix core of the in-set family; IVPQ has
     #: none (its round count depends on the data).
@@ -626,7 +728,11 @@ class Freddy:
         a registered one. TRACK stages as in the reference
         (ivpq_search_in.c:233-697): query construction, data retrieval
         (the target tiling build; 0 on a prepared handle) and computation,
-        plus per-query ``retrieved`` and ``target_count``."""
+        plus per-query ``retrieved`` and ``target_count``. Under a mesh the
+        join runs sharded over the targets
+        (:func:`parallel.sharding.sharded_ivpq_join`, the dense round; a
+        prepared handle gives its targets) and reports no per-query counts,
+        as in the JAX engine."""
         ivpq = self._require(self.ivpq, "IVPQ")
         if isinstance(queries, (list, tuple)) and queries and isinstance(
                 queries[0], str):
@@ -644,24 +750,37 @@ class Freddy:
             if self.track_stages:
                 self._track_precompute(q, ivpq.codebook.centroids)
             t0 = time.perf_counter()
-            d, i, info = ivpq.search_join(
-                q, k, None if ph is not None else tids, prepared=ph,
-                target_mask=None if ph is not None else tmask,
-                vectors=None if ph is not None else self.store.vectors_norm,
-                statistics=self._active_statistics(), alpha=p.alpha,
-                pvf=p.pvf, method=p.method, confidence=p.confidence,
-                long_codes_threshold=p.long_codes_threshold,
-                use_targetlists=p.use_targetlist, lut_dtype=p.pq_lut_dtype,
-                return_info=True)
+            if self.mesh is not None:
+                if ph is not None:
+                    tids, tmask = ph.target_ids, ph.target_mask
+                qp, b = self._pad_q(q)
+                d, i = sharding.sharded_ivpq_join(
+                    self.mesh, ivpq, qp, k, tids, target_mask=tmask,
+                    vectors=self.store.vectors_norm,
+                    statistics=self._active_statistics(), alpha=p.alpha,
+                    pvf=p.pvf, method=p.method, confidence=p.confidence)
+                d, i, info = d[:b], i[:b], None
+            else:
+                d, i, info = ivpq.search_join(
+                    q, k, None if ph is not None else tids, prepared=ph,
+                    target_mask=None if ph is not None else tmask,
+                    vectors=(None if ph is not None
+                             else self.store.vectors_norm),
+                    statistics=self._active_statistics(), alpha=p.alpha,
+                    pvf=p.pvf, method=p.method, confidence=p.confidence,
+                    long_codes_threshold=p.long_codes_threshold,
+                    use_targetlists=p.use_targetlist,
+                    lut_dtype=p.pq_lut_dtype, return_info=True)
             ids_host = i.cpu()            # wait for the device
             elapsed = time.perf_counter() - t0
-            dr = info["data_retrieval_s"]
+            dr = 0.0 if info is None else info["data_retrieval_s"]
             self.tracker.track("data_retrieval_time", dr)
             self.tracker.track("computation_time", max(elapsed - dr, 0.0))
-            for r in info["retrieved"].tolist():
-                self.tracker.track("retrieved", float(r))
-            for t in info["target_count"].tolist():
-                self.tracker.track("target_count", float(t))
+            if info is not None:
+                for r in info["retrieved"].tolist():
+                    self.tracker.track("retrieved", float(r))
+                for t in info["target_count"].tolist():
+                    self.tracker.track("target_count", float(t))
         return self._format_join(names, d, ids_host)
 
     # ============================================================= analogy
@@ -1184,6 +1303,11 @@ class Freddy:
             self.ivfadc = self.ivfadc.add(norm_new)
         if self.ivpq is not None:
             self.ivpq = self.ivpq.add(norm_new)
+        if self.mesh is not None:
+            # the whole re-shard of the JAX engine (api.py:1483-1487): a
+            # per-shard append would break the owner rule id // shard_size
+            # of the in-set and post-verify paths
+            self.enable_sharding(self.mesh)
         return len(new_words)
 
     @classmethod
@@ -1192,9 +1316,8 @@ class Freddy:
         """Load an engine directory written by this port's or the JAX
         package's ``Freddy.save`` onto ``device``: the card unless another
         is named (``device="cpu"`` for the CPU); without a card and without
-        ``device`` it raises."""
-        if mesh is not None:
-            raise NotImplementedError(f"mesh: {_SHARDING}")
+        ``device`` it raises. ``mesh``: the engine comes up sharded over it
+        (:meth:`enable_sharding`)."""
         device = resolve_device(device)
         d = Path(directory)
         with np.load(d / "store.npz", allow_pickle=False) as f:
@@ -1218,6 +1341,8 @@ class Freddy:
             with np.load(d / "statistics.npz", allow_pickle=False) as f:
                 eng.statistics = {n: torch.as_tensor(f[n], device=device)
                                   for n in f.files}
+        if mesh is not None:
+            eng.enable_sharding(mesh)
         return eng
 
 
@@ -1279,19 +1404,5 @@ def _globals_to_locals(ids: torch.Tensor, tids: torch.Tensor
     return torch.where((ids >= 0) & hit, order[pos], -1)
 
 
-#: Methods of the JAX engine that a later item of ROADMAP.md ports. Each is
-#: present on :class:`Freddy` and raises ``NotImplementedError``.
-NOT_PORTED = {"enable_sharding": _SHARDING}
-
-
-def _not_ported(name: str, item: str):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"Freddy.{name} is not ported to PyTorch yet: {item}")
-    method.__name__ = name
-    method.__doc__ = f"Not ported yet: {item}."
-    return method
-
-
-for _name, _item in NOT_PORTED.items():
-    setattr(Freddy, _name, _not_ported(_name, _item))
+#: Methods of the JAX engine not ported to this one: none.
+NOT_PORTED: dict[str, str] = {}

@@ -22,8 +22,11 @@ appends rows to a fixed-capacity unsorted tail that every search scans
 the tail would overflow, :meth:`IVFADCIndex._splice` merges it into the
 CSR lists.
 
-Not ported yet: the row-1 probe ``_ivfadc_probe`` and the streaming build
-of ``models/builders.py``.
+The row-1 probe :func:`_ivfadc_probe` — the w probed cells' lists gathered
+into ``(B, w, list_cap)`` windows and scored with one LUT per (query, cell)
+by :func:`grouped_adc_distances` — is the one the sharded IVFADC runs on
+each shard's cells (``parallel/sharding.py``), and the tiled probe's
+reference in the tests.
 """
 
 from __future__ import annotations
@@ -171,6 +174,83 @@ def _ivfadc_probe_budget(queries: torch.Tensor, coarse: torch.Tensor,
     found = torch.sum(tiled.tile_rows[tiles.long()], dim=1)
     needed = torch.sum(tiled.cell_sizes[cells], dim=1)
     return vals, ids, found, needed
+
+
+#: Elements of the row-1 probe's gathered ``(B, w, list_cap, m)`` candidate
+#: codes per query chunk; a larger batch runs in chunks of queries.
+_PROBE_ELEMS = 1 << 26
+
+
+def grouped_adc_distances(luts: torch.Tensor, codes: torch.Tensor
+                          ) -> torch.Tensor:
+    """ADC with per-group LUTs: ``(..., m, k) × (..., L, m) → (..., L)``
+    float32 (JAX ivfadc.py:47-66). Each leading-dim group (query × probed
+    cell) has its own LUT, the residual-ADC pattern of ``ivfadc_search``
+    (freddy.c:347-373): one flat gather into each group's ``(m·k,)`` table,
+    then a sum over the m subspaces."""
+    m, k = luts.shape[-2:]
+    L = codes.shape[-2]
+    flat = luts.float().reshape(-1, m * k)
+    idx = codes.long() + torch.arange(m, device=codes.device) * k
+    gathered = torch.gather(flat, 1, idx.reshape(flat.shape[0], L * m))
+    return gathered.reshape(*codes.shape[:-1], m).sum(-1)
+
+
+@no_tf32()
+def _probe_cells(queries: torch.Tensor, coarse: torch.Tensor,
+                 centroids: torch.Tensor, cells: torch.Tensor,
+                 cell_offsets: torch.Tensor, codes_sorted: torch.Tensor,
+                 row_ids: torch.Tensor, list_cap: int, k: int,
+                 owned: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, ...]:
+    """The row-1 probe of each query's ``cells`` (B, w) over a CSR list
+    (JAX ivfadc.py:250-282): per-(query, cell) residual LUTs, each cell's
+    rows gathered into a window of ``list_cap`` lanes, ADC, a masked top-k.
+    ``owned`` (B, w) masks cells whose rows live elsewhere (a shard's).
+    → (sqdists (B, k'), int64 ids −1 past the rows found, found (B,) real
+    candidates seen), k' = min(k, w·list_cap). The ``(B, w, list_cap, m)``
+    gather runs in query chunks of at most :data:`_PROBE_ELEMS` elements."""
+    B, d = queries.shape
+    w = cells.shape[1]
+    m = codes_sorted.shape[1]
+    step = max(1, _PROBE_ELEMS // max(w * list_cap * m, 1))
+    if B > step:
+        outs = [_probe_cells(queries[s:s + step], coarse, centroids,
+                             cells[s:s + step], cell_offsets, codes_sorted,
+                             row_ids, list_cap, k,
+                             None if owned is None else owned[s:s + step])
+                for s in range(0, B, step)]
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    resid = queries.float()[:, None, :] - coarse[cells]          # (B, w, d)
+    luts = lut.build_luts(resid.reshape(B * w, d), centroids)
+    luts = luts.reshape(B, w, *luts.shape[1:])               # (B, w, m, k)
+    offs = cell_offsets.long()
+    pos = offs[cells][..., None] + torch.arange(list_cap,
+                                                device=queries.device)
+    valid = pos < offs[cells + 1][..., None]                      # (B, w, L)
+    if owned is not None:
+        valid &= owned[..., None]
+    pos_c = torch.clamp_max(pos, codes_sorted.shape[0] - 1)
+    dists = grouped_adc_distances(luts, codes_sorted[pos_c])
+    dists = torch.where(valid, dists, float("inf")).reshape(B, -1)
+    vals, fpos = topk_ops.top_k_smallest(dists, min(k, w * list_cap))
+    gpos = torch.gather(pos_c.reshape(B, -1), 1, fpos)
+    ids = torch.where(torch.isfinite(vals), row_ids.long()[gpos], -1)
+    return vals, ids, valid.reshape(B, -1).sum(-1)
+
+
+def _ivfadc_probe(queries: torch.Tensor, coarse: torch.Tensor,
+                  centroids: torch.Tensor, cell_offsets: torch.Tensor,
+                  codes_sorted: torch.Tensor, row_ids: torch.Tensor, w: int,
+                  k: int, list_cap: int) -> tuple[torch.Tensor, ...]:
+    """Probe the w nearest cells per query, ADC-scan their lists, top-k
+    (JAX ivfadc.py:243-282) → (sqdists, int64 global ids, found), where
+    ``found[b]`` counts the real candidates seen, the reference's
+    ``foundInstances`` (freddy.c:262)."""
+    _, cells = topk_ops.top_k_smallest(kmeans.pairwise_sqdist(queries, coarse),
+                                       w)
+    return _probe_cells(queries, coarse, centroids, cells, cell_offsets,
+                        codes_sorted, row_ids, list_cap, k)
 
 
 def _tail_scan(queries: torch.Tensor, coarse: torch.Tensor,

@@ -247,21 +247,32 @@ def _ivpq_round(queries: torch.Tensor, coarse_centroids: torch.Tensor,
                 target_mask: torch.Tensor, statistics: torch.Tensor,
                 vectors: torch.Tensor | None, k: int, alpha: int, pvf: int,
                 method: int, confidence: float, use_double: bool,
-                pregathered: bool) -> tuple[torch.Tensor, ...]:
+                pregathered: bool,
+                t_real_override: torch.Tensor | None = None,
+                cell_counts_override: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, ...]:
     """One dense probe round: every target scored, masked to each query's
     selected cells → (sqdists (B, k), global ids (B, k), retrieved (B,)
     real candidates, exhausted (B,) probed every cell, predicted (B,)).
     ``codes_t`` is the (m, T) target code table, fused-pair codes when
     ``use_double`` (:meth:`PreparedJoin.codes_t`); the exact method reads
-    ``vectors`` instead, by global id or, ``pregathered``, by position."""
+    ``vectors`` instead, by global id or, ``pregathered``, by position.
+    The overrides give the cell selection the whole target set's count and
+    per-cell counts where these targets are one shard of it
+    (``parallel/sharding.py``); None counts these targets."""
     B = queries.shape[0]
     num_cells = statistics.shape[0] - 1
     cells = target_cells.long()
-    cell_counts = torch.zeros(num_cells, device=queries.device).index_add_(
-        0, cells, target_mask.float())
+    cell_counts = cell_counts_override
+    if cell_counts is None:
+        cell_counts = torch.zeros(num_cells,
+                                  device=queries.device).index_add_(
+            0, cells, target_mask.float())
+    t_real = target_mask.sum() if t_real_override is None \
+        else t_real_override
     order, n_sel, exhausted, predicted, _ = _select_cells(
-        queries, coarse_centroids, statistics, cell_counts,
-        target_mask.sum(), k, alpha, confidence)
+        queries, coarse_centroids, statistics, cell_counts, t_real, k,
+        alpha, confidence)
     ranks = torch.empty_like(order).scatter_(
         1, order, torch.arange(num_cells, device=order.device).expand_as(
             order))
@@ -380,14 +391,20 @@ def build_join_tiles(target_codes: torch.Tensor, target_cells: torch.Tensor,
 
 def probe_tiles(queries: torch.Tensor, coarse_centroids: torch.Tensor,
                 statistics: torch.Tensor, jt: JoinTiles, k: int, alpha: int,
-                confidence: float, p_budget: int
+                confidence: float, p_budget: int,
+                t_real_override: torch.Tensor | None = None,
+                cell_counts_override: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, ...]:
     """Each query's selected cells planned into ``p_budget`` tile slots →
     (tiles (B, P) int32, exhausted (B,), predicted (B,), retrieved_sel
-    (B,)), as :func:`_select_cells` defines them."""
+    (B,)), as :func:`_select_cells` defines them; the overrides as in
+    :func:`_ivpq_round`."""
     num_cells = statistics.shape[0] - 1
     order, n_sel, exhausted, predicted, retrieved_sel = _select_cells(
-        queries, coarse_centroids, statistics, jt.cell_sizes, jt.t_real, k,
+        queries, coarse_centroids, statistics,
+        jt.cell_sizes if cell_counts_override is None
+        else cell_counts_override,
+        jt.t_real if t_real_override is None else t_real_override, k,
         alpha, confidence)
     rank_lt = (torch.arange(num_cells, device=queries.device)[None, :]
                < n_sel[:, None])
@@ -403,17 +420,20 @@ def _ivpq_round_budget(queries: torch.Tensor, coarse_centroids: torch.Tensor,
                        statistics: torch.Tensor, k: int, alpha: int,
                        pvf: int, method: int, confidence: float,
                        use_double: bool, p_budget: int, lut_dtype: str,
-                       target_ids: torch.Tensor, pregathered: bool
+                       target_ids: torch.Tensor, pregathered: bool,
+                       t_real_override: torch.Tensor | None = None,
+                       cell_counts_override: torch.Tensor | None = None
                        ) -> tuple[torch.Tensor, ...]:
     """One selectivity-proportional round: each query scans the tiles of
     its selected cells, at most ``p_budget`` of them. Same return contract
     as :func:`_ivpq_round` (``target_ids`` maps target positions to global
-    ids); ``retrieved`` counts rows actually scanned, so a query cut short
-    by the budget is never wrongly retired."""
+    ids; the overrides likewise); ``retrieved`` counts rows actually
+    scanned, so a query cut short by the budget is never wrongly
+    retired."""
     bt = jt.block_t
     tiles, exhausted, predicted, retrieved_sel = probe_tiles(
         queries, coarse_centroids, statistics, jt, k, alpha, confidence,
-        p_budget)
+        p_budget, t_real_override, cell_counts_override)
 
     if method == EXACT_CALC:
         qf = queries.float()

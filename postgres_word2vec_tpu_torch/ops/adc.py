@@ -164,7 +164,6 @@ def adc_top_k(luts: torch.Tensor, codes: torch.Tensor, k: int, *,
         codes.shape[0], chunk_size, k)
 
 
-@no_tf32()
 def post_verify(queries: torch.Tensor, cand_ids: torch.Tensor,
                 cand_dists: torch.Tensor, vectors: torch.Tensor, k: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -176,9 +175,20 @@ def post_verify(queries: torch.Tensor, cand_ids: torch.Tensor,
 
     Parity: ``postverify`` (index_utils.c:477-498) and
     ``k_nearest_neighbour_pq_pv`` (freddy--0.0.1.sql:625-662)."""
+    cv = vectors[torch.clamp_min(cand_ids.long(), 0)]          # (B, C, d)
+    return rerank(queries, cand_ids, cand_dists, cv, k)
+
+
+@no_tf32()
+def rerank(queries: torch.Tensor, cand_ids: torch.Tensor,
+           cand_dists: torch.Tensor, cand_vecs: torch.Tensor, k: int
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`post_verify` over candidate rows already gathered,
+    ``cand_vecs`` (B, C, d) — the sharded post-verify assembles them from
+    the shards that own them."""
     q = queries.float()                                        # (B, d)
     ids = cand_ids.long()
-    cv = vectors[torch.clamp_min(ids, 0)].float()              # (B, C, d)
+    cv = cand_vecs.float()
     qq = torch.sum(q * q, dim=-1, keepdim=True)
     cc = torch.sum(cv * cv, dim=-1)
     qc = torch.bmm(cv, q.unsqueeze(-1)).squeeze(-1)

@@ -29,7 +29,13 @@ Tolerances:
   16-bit lanes too, at m up to 258, and their unpacked sums past it) and
   the plain version's rounding of the rescale (and of K8's row-term add),
   so K3 and K5 are held to equality (mins, ids and +inf / −1 slots) and
-  K8 to 0 on the finite entries with the same +inf entries.
+  K8 to 0 on the finite entries with the same +inf entries;
+- row sharding on four shards of ``cuda:0``: K2 / K3 once per shard and
+  equal to the plain version on a shard's (m, S) codes, K6 / K7 equal and
+  K9 / K10 within 1e-4 on a shard's join tiles at ``block_t = 128``, and
+  the sharded engine's families equal to a CPU mesh's up to ties (1e-5;
+  1e-4 for the IVFADC decomposition, 1e-2 where the exact budget round
+  reads bf16 rows).
 """
 
 import numpy as np
@@ -1481,3 +1487,137 @@ def test_anisotropic_refine_on_the_card_matches_the_cpu():
     # a point that ties between two centroids may fall either way
     close = (got.cpu() - want).abs().amax(-1) <= 1e-3
     assert close.float().mean() >= 0.95
+
+
+# ------------------------------- row sharding: R shards on the one card
+
+def _meshes():
+    from postgres_word2vec_tpu_torch.parallel.sharding import make_mesh
+    return (make_mesh([torch.device("cuda:0")] * 4, rows=4),
+            make_mesh(["cpu"] * 4, rows=4))
+
+
+@pytest.mark.parametrize("lut_dtype,kernel", (("bf16", "adc_scan"),
+                                              ("int8", "adc_scan_int8")))
+def test_sharded_pq_on_the_card_launches_its_scan_per_shard(engine_dirs,
+                                                            lut_dtype,
+                                                            kernel):
+    """A sharded PQ call launches K2 (K3 for int8 LUTs) once per shard,
+    each over its (m, S) codes and equal to the plain version there; the
+    float path returns the CPU mesh engine's results."""
+    from postgres_word2vec_tpu_torch import Freddy
+    from test_torch_parity_util import assert_same_top_k
+
+    gmesh, cmesh = _meshes()
+    gpu = Freddy.load(engine_dirs, device="cuda", mesh=gmesh)
+    cpu = Freddy.load(engine_dirs, device="cpu", mesh=cmesh)
+    gpu.set_pq_lut_dtype(lut_dtype)
+    q = gpu.store.vectors_norm[:257]
+    kernels.reset_launch_counts()
+    got = gpu._pq_knn_core(q, 10)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[kernel] == 4
+    codes_t = gpu._shard["pq_codes"].local(2)
+    assert codes_t.shape == (12, 1500) and codes_t.is_contiguous()
+    luts = gpu._mesh_luts(gpu.pq, q)
+    if lut_dtype == "int8":
+        ql, sc = kernels.quantize_luts_int8(luts)
+        assert torch.equal(kernels.adc_scan_int8(ql, sc, codes_t),
+                           kernels.adc_scan_plain(ql, codes_t, scale=sc))
+    else:
+        assert torch.equal(kernels.adc_scan(luts, codes_t),
+                           kernels.adc_scan_plain(luts, codes_t))
+        want = cpu._pq_knn_core(q.cpu(), 10)
+        assert_same_top_k(got[0], got[1], want[0], want[1], atol=1e-5)
+
+
+@pytest.mark.parametrize("B,method", ((64, 0), (1024, 0), (64, 1),
+                                      (1024, 1)))
+def test_sharded_budget_join_kernels_match_plain_at_block_t_128(engine_dirs,
+                                                                B, method):
+    """The budget join's kernels on one shard's tiles at ``block_t = 128``
+    (``shard_join_tiles``), planned with the whole set's counts: K6 or K7
+    equal to the plain version, K9 or K10 within 1e-4; the sharded join on
+    the card returns the CPU mesh's up to ties."""
+    from postgres_word2vec_tpu_torch import Freddy
+    from postgres_word2vec_tpu_torch.models import ivpq as ivpq_mod
+    from postgres_word2vec_tpu_torch.ops import lut
+    from postgres_word2vec_tpu_torch.parallel import sharding
+    from test_torch_parity_util import assert_same_top_k
+
+    gmesh, cmesh = _meshes()
+    out = []
+    for eng, mesh in ((Freddy.load(engine_dirs, device="cuda"), gmesh),
+                      (Freddy.load(engine_dirs, device="cpu"), cmesh)):
+        x = eng.store.vectors_norm
+        tids = torch.arange(0, 6000, 2, device=x.device)
+        q = x[1:2 * B:2]
+        kernels.reset_launch_counts()
+        out.append(sharding.sharded_ivpq_join(
+            mesh, eng.ivpq, q, 5, tids, vectors=x, alpha=20, pvf=4,
+            method=method, impl="budget"))
+        counts = kernels.launch_counts()
+        if x.is_cuda:
+            names = (("budget_adc", "budget_adc_grouped") if method == 0
+                     else ("budget_exact", "budget_exact_grouped"))
+            assert sum(counts[n] for n in names) >= 4, counts
+            ivpq, q_g = eng.ivpq, q
+            bundle = sharding.shard_join_tiles(
+                ivpq, tids, torch.ones_like(tids, dtype=torch.bool),
+                x[tids] if method == 1 else None, gmesh,
+                with_vecs=method == 1)
+    assert_same_top_k(out[0][0], out[0][1], out[1][0], out[1][1],
+                      atol=1e-2 if method == 1 else 1e-5)
+    jt = bundle["jt"][1][torch.device("cuda", 0)]
+    assert jt.block_t == 128
+    stats = ivpq_mod.uniform_statistics(ivpq.coarse.cell_counts)
+    tiles, *_ = ivpq_mod.probe_tiles(
+        q_g, ivpq.coarse.centroids, stats, jt, 5, 20, 0.8, 16,
+        bundle["t_real"], bundle["cell_counts"])
+    if method == 0:
+        luts = lut.build_luts(q_g, ivpq.codebook.centroids)
+        want = kernels.budget_adc_plain(luts, jt.codes_t, jt.rowterm, tiles,
+                                        block_t=128)
+        for got in (kernels.budget_adc(luts, jt.codes_t, jt.rowterm, tiles,
+                                       block_t=128),
+                    kernels.budget_adc_grouped(luts, jt.codes_t, jt.rowterm,
+                                               tiles, block_t=128, rows=32)):
+            _assert_budget_close(got, want, 0.0)
+    else:
+        want = kernels.budget_exact_plain(q_g, jt.vecs, jt.rownorm, tiles,
+                                          block_t=128)
+        for got in (kernels.budget_exact(q_g, jt.vecs, jt.rownorm, tiles,
+                                         block_t=128),
+                    kernels.budget_exact_grouped(q_g, jt.vecs, jt.rownorm,
+                                                 tiles, block_t=128,
+                                                 rows=32)):
+            _assert_budget_close(got, want, 1e-4)
+
+
+def test_sharded_engine_on_the_card_matches_the_cpu_mesh(engine_dirs):
+    """Every routed family of an engine loaded on the card with a mesh of
+    four shards of ``cuda:0`` against the same engine on a CPU mesh."""
+    from postgres_word2vec_tpu_torch import Freddy
+    from test_torch_parity_util import assert_same_top_k
+
+    gmesh, cmesh = _meshes()
+    gpu = Freddy.load(engine_dirs, device="cuda", mesh=gmesh)
+    cpu = Freddy.load(engine_dirs, device="cpu", mesh=cmesh)
+    q = cpu.store.vectors_norm[:40]
+    tids = torch.arange(1, 6000, 3)
+    mask = torch.ones(tids.shape, dtype=torch.bool)
+    for core, args, atol in (
+            ("_exact_knn_core", (), 1e-5), ("_pq_pv_knn_core", (), 1e-5),
+            ("_ivfadc_knn_core", (), 1e-4), ("_ivfadc_pv_knn_core", (), 1e-5),
+            ("_exact_in_core", (tids, mask), 1e-5),
+            ("_pq_in_core", (tids, mask), 1e-5)):
+        got = getattr(gpu, core)(q.cuda(), 7, *(a.cuda() for a in args))
+        want = getattr(cpu, core)(q, 7, *args)
+        assert_same_top_k(got[0], got[1], want[0], want[1], atol=atol)
+    gpu.set_alpha(20)
+    cpu.set_alpha(20)
+    words = [f"w{i}" for i in range(40)]
+    targets = [f"w{i}" for i in range(0, 6000, 4)]
+    got = gpu.knn_in_ivpq_batch(words, 5, targets)
+    want = cpu.knn_in_ivpq_batch(words, 5, targets)
+    assert [(a, w) for a, w, _ in got] == [(a, w) for a, w, _ in want]

@@ -30,7 +30,7 @@ def test_the_port_has_the_slice_modules():
                  "server_async", "evaluation.synth", "evaluation.join_wall",
                  "evaluation.benchutil", "evaluation.harness",
                  "evaluation.plots", "evaluation.html_report",
-                 "evaluation.serving_bench"):
+                 "evaluation.serving_bench", "parallel.sharding"):
         assert f"postgres_word2vec_tpu_torch.{name}" in mods, name
 
 

@@ -247,6 +247,8 @@ def test_port_build_runs_the_slice(rng):
 # ---------------------------------------------------- what is not ported
 
 def test_every_jax_engine_method_exists_or_raises(saved_jax_engine):
+    """Every public method of the JAX engine is on the port's, and none is
+    left unported (``enable_sharding`` was the last)."""
     import inspect
     _, path = saved_jax_engine
     port = Freddy.load(path, device="cpu")
@@ -254,23 +256,26 @@ def test_every_jax_engine_method_exists_or_raises(saved_jax_engine):
               if not n.startswith("_") and callable(v)]
     for name in public:
         assert hasattr(port, name), name
-    assert set(NOT_PORTED) == {"enable_sharding"}
-    for name in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(port, name)()
+    assert NOT_PORTED == {}
+    assert "raise NotImplementedError" not in inspect.getsource(
+        Freddy.enable_sharding)
 
 
 def test_unported_families_raise(saved_jax_engine):
-    """What the slices so far left out raises and names its ROADMAP item:
-    the mesh. Anisotropic refinement, which raised until it was ported,
-    now builds."""
+    """What raised until it was ported now builds: ``mesh=`` (an engine in
+    sharded mode over a two-row CPU mesh) and anisotropic refinement."""
+    from postgres_word2vec_tpu_torch.parallel.sharding import make_mesh
     _, path = saved_jax_engine
     store = Freddy.load(path, device="cpu").store
-    with pytest.raises(NotImplementedError, match="sharding"):
-        Freddy.build(store, mesh=object())
-    eng = Freddy.build(store, with_ivfadc=False, with_ivpq=False,
+    mesh = make_mesh(["cpu"] * 2, rows=2)
+    eng = Freddy.build(store, mesh=mesh, with_ivfadc=False, with_ivpq=False,
                        aniso_eta=2.0, train_size=None, iters=3)
     assert eng.pq.codes.shape[0] == store.size
+    assert eng.mesh is mesh and eng._shard["valid"] == store.size
+    assert eng._shard["pq_codes"].shard_size == store.size // 2
+    assert Freddy.load(path, device="cpu", mesh=mesh).mesh is mesh
+    eng.set_knn_function("k_nearest_neighbour_pq")
+    assert eng.knn("w3", 3)[0][0] == "w3"
 
 
 def test_jax_engine_with_int8_luts_loads_on_a_cuda_engine(saved_jax_engine,
