@@ -105,7 +105,26 @@ a user calls, and holds every hand-written kernel to its plain version:
     extended with each batch and held to a fresh build, every inserted
     term its own exact top-1, PQ-PV and IVFADC-PV self-recall before and
     after the splice, and the int8 kernels and K6 launched on the grown
-    tables.
+    tables;
+14. the command-line drivers (``postgres_word2vec_tpu_torch.cli``), after
+    the phase-4 engine and the sharded one are released, every file they
+    write in a temporary directory: the offline chain as ``python -m``
+    subprocesses with no ``--device`` (so on the card) over the first
+    262,144 rows of the phase-4 store written as a word2vec ``.bin``
+    (``vec2database``, ``pq_index``, ``ivfadc`` and ``ivpq`` on the
+    shipped configs, IVPQ with a 20,000-word statistics domain,
+    ``load_index`` of each with a floor on its self-match,
+    ``transform_vecs`` read back equal, ``import_freddy`` export and
+    import bit-equal), each exiting 0 with no process left; the
+    evaluation drivers in-process on their shipped 3M configs
+    (``time_precision_eval`` on ``time_precision_full.json``, the
+    README's figure, with its precision floors and the kernels of each
+    join method and of the PQ baseline; ``step_wise``,
+    ``confidence_eval`` with its guarantee, ``target_counts`` with a
+    ceiling, ``flexible_pq_eval``); ``time_measurement`` in its six
+    methods, ``vec_distr`` and the three examples (the mesh one on 4 × 1
+    entries of the card); each driver's wall time, launches and key
+    numbers; nothing under ``reports/`` changes.
 
 Usage: ``python3 chip_smoke.py [--profile OUT.json]`` from the repository
 root, on a machine with one CUDA GPU. It fails (non-zero exit, no result
@@ -196,6 +215,14 @@ SHARD_ESCALATE_K = 3072
 # the insert phase: new two-word terms, in batches
 INSERT_TERMS, INSERT_BATCH = 10_240, 2_560
 INSERT_FLOORS = {"pq_pv20_self@5": 0.9, "ivfadc_pv20_self@5": 0.8}
+# the drivers phase: the offline chain's rows (the head of the phase-4
+# store; a compressed 3M store would take minutes to write), the IVPQ
+# statistics domain, load_index's floor on self-match@1 over its 4 probes
+# (ADC distances are not 0 on a row's own code) and a ceiling on the
+# target-count model's mean relative error (the JAX 3M record: 2.6 %)
+OFFLINE_N, STATS_WORDS = 262_144, 20_000
+SELF_MATCH_FLOOR, TARGET_COUNT_CEILING = 0.75, 0.10
+REPO = os.path.dirname(os.path.abspath(__file__))
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense rates at
 # 700 W): HBM3 bytes/s, bf16 tensor-core and float32 CUDA-core
 # operations/s. The ADC lookups (float or int32 adds) and K9/K10's products
@@ -230,7 +257,7 @@ def stop_children() -> None:
             os.kill(pid, signal.SIGKILL)
             os.waitpid(pid, 0)
     check(not left, f"processes still running at the end: {left}")
-    log("[14] no child process left")
+    log("[end] no child process left")
 
 
 def gpu_line() -> str:
@@ -1796,18 +1823,401 @@ def sharding_phase(torch, eng, store, q256, qjoin, jwords, ph100k, errs,
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--profile", metavar="OUT.json",
-                    help="also profile each path and write the report here")
-    args = ap.parse_args()
-    started = time.perf_counter()
-    import torch
+# --------------------------------------------------- 14: the CLI drivers
+def write_word2vec_bin(path, words, vecs) -> None:
+    """A word2vec ``.bin``: a ``N d`` header, then each word, a space, its
+    float32 row and a newline."""
+    import numpy as np
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this check runs only on a GPU",
-              file=sys.stderr)
-        return 1
+    rows = np.ascontiguousarray(vecs, dtype=np.float32)
+    with open(path, "wb") as f:
+        f.write(f"{len(words)} {rows.shape[1]}\n".encode())
+        f.write(b"".join(w.encode() + b" " + r.tobytes() + b"\n"
+                         for w, r in zip(words, rows)))
+
+
+def npz_arrays(path) -> dict:
+    import numpy as np
+
+    with np.load(path, allow_pickle=False) as f:
+        return {name: f[name] for name in f.files}
+
+
+def reports_digest() -> dict:
+    """Every file under ``reports/`` → the SHA-256 of its bytes."""
+    import hashlib
+    from pathlib import Path
+
+    return {str(p): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(Path(REPO, "reports").rglob("*")) if p.is_file()}
+
+
+@contextlib.contextmanager
+def launches_by_join_call(kernels, Freddy, into: dict):
+    """Count the kernels each IVPQ join call (by its method) and each PQ
+    in-set batch launches, summed into ``into``: the drivers build their
+    engines themselves, so the engine's class methods are wrapped."""
+    names = ("knn_in_ivpq_batch", "knn_in_pq_batch")
+    orig = {n: getattr(Freddy, n) for n in names}
+
+    def wrap(name, fn):
+        def call(self, *args, **kw):
+            before = kernels.launch_counts()
+            try:
+                return fn(self, *args, **kw)
+            finally:
+                label = (f"m{self.params.method}" if name == names[0]
+                         else "pq_in_batch")
+                acc = into.setdefault(label, {})
+                for k, v in kernels.launch_counts().items():
+                    if v > before[k]:
+                        acc[k] = acc.get(k, 0) + v - before[k]
+        return call
+
+    for n, fn in orig.items():
+        setattr(Freddy, n, wrap(n, fn))
+    try:
+        yield into
+    finally:
+        for n, fn in orig.items():
+            setattr(Freddy, n, fn)
+
+
+def drivers_phase(torch, head_words, head_vecs, path_launches: dict,
+                  card: str) -> dict:
+    """Phase 14: the command-line drivers (``postgres_word2vec_tpu_torch
+    .cli``) on the card, every file they write in a temporary directory.
+
+    1. the offline chain as ``python -m`` subprocesses with no
+       ``--device`` (so on the card), in the temporary directory: the
+       first OFFLINE_N rows of the phase-4 store as a word2vec ``.bin``
+       → ``vec2database`` → ``pq_index``, ``ivfadc`` and ``ivpq`` on the
+       shipped configs (IVPQ with a STATS_WORDS-word statistics domain)
+       → ``load_index`` of each, self-match@1 at least SELF_MATCH_FLOOR;
+       ``transform_vecs`` of a MIGRATE_N-row ``.bin`` read back equal to
+       its rows; ``import_freddy export`` then ``import`` of a saved
+       MIGRATE_N-row engine, its codes and codebooks bit-equal;
+    2. the evaluation drivers in-process on their shipped 3M configs
+       (copies that write into the temporary directory):
+       ``time_precision_eval`` (the README's figure), with the launches
+       of each join method and the PQ baseline, ``step_wise``,
+       ``confidence_eval``, ``target_counts`` and ``flexible_pq_eval``;
+    3. ``time_measurement`` in its six methods and ``vec_distr`` on
+       ``time_measurement.json``, and the three examples (the mesh one on
+       4 × 1 entries of the card).
+
+    Each driver's launches are counted from 0 and kept in
+    ``path_launches`` under ``drivers_<name>``; nothing under ``reports/``
+    may change."""
+    import gc
+    import importlib
+    import io
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from postgres_word2vec_tpu_torch import Freddy, VectorStore
+    from postgres_word2vec_tpu_torch.evaluation import serving_bench as sb
+    from postgres_word2vec_tpu_torch.ops import kernels
+
+    before_reports = reports_digest()
+    out = {"wall_s": {}, "launches": {}}
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+
+    def module(name):
+        return importlib.import_module(
+            f"postgres_word2vec_tpu_torch.cli.{name}")
+
+    def subprocess_driver(name, *args, cwd):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m",
+                              f"postgres_word2vec_tpu_torch.cli.{name}",
+                              *map(str, args)], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=900)
+        took = time.perf_counter() - t0
+        check(res.returncode == 0, f"python -m {name} exited "
+              f"{res.returncode}: {res.stderr[-2000:]}")
+        check(not sb.child_processes(), f"python -m {name} left "
+              f"{sb.child_processes()}")
+        out["wall_s"][name] = took
+        lines = res.stdout.strip().splitlines()
+        log(f"[14] python -m {name}: {took:.1f} s, exit 0, no process left,"
+            f" launches counted in its own process only; "
+            f"{' | '.join(ln.split('INFO: ')[-1] for ln in lines)[:300]} "
+            f"on {card}")
+        return lines
+
+    def in_process(name, fn, tmp, launches_label=None):
+        """Run a driver's ``main`` with its counts set to 0 just before,
+        its printout into a file in ``tmp``; → (result, launches)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = fn()
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        label = launches_label or name
+        path_launches[f"drivers_{label}"] = counts
+        out["wall_s"][label] = took
+        out["launches"][label] = counts
+        Path(tmp, f"{label}.out").write_text(buf.getvalue())
+        return res, counts, took
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # ---- 1. the offline chain, as subprocesses on the card
+        t_chain = time.perf_counter()
+        (tmp / "vectors").mkdir()
+        (tmp / "config").mkdir()
+        write_word2vec_bin(tmp / "vectors" / "google_vecs.bin", head_words,
+                           head_vecs)
+        cfgs = {}
+        for name in ("vecs_config", "pq_config", "ivfadc_config",
+                     "ivpq_config"):
+            cfgs[name] = json.loads(Path(
+                REPO, "index_creation", "config", f"{name}.json").read_text())
+        cfgs["vecs_config"]["vec_file_path"] = "vectors/google_vecs.bin"
+        rng = np.random.default_rng(SEED)
+        stats_ids = rng.choice(len(head_words), STATS_WORDS, replace=False)
+        (tmp / "stats_words.txt").write_text(
+            "\n".join(head_words[i] for i in stats_ids) + "\n")
+        cfgs["ivpq_config"]["statistic_words_path"] = "stats_words.txt"
+        for name, body in cfgs.items():
+            (tmp / "config" / f"{name}.json").write_text(json.dumps(body))
+        (tmp / "artifacts").mkdir()
+        subprocess_driver("index_creation.vec2database",
+                          "config/vecs_config.json", cwd=tmp)
+        for fam in ("pq_index", "ivfadc", "ivpq"):
+            cfg = fam.replace("_index", "") + "_config.json"
+            subprocess_driver(f"index_creation.{fam}", f"config/{cfg}",
+                              cwd=tmp)
+        stats = np.load(tmp / "artifacts" / "ivpq_index.npz.stats.npy")
+        check(stats[-1] == STATS_WORDS and abs(stats[:-1].sum() - 1) < 1e-4,
+              f"ivpq statistics: total {stats[-1]}, shares sum "
+              f"{stats[:-1].sum()}")
+        self_match = {}
+        for fam in ("pq", "ivfadc", "ivpq"):
+            art = "pq_index.npz" if fam == "pq" else f"{fam}_index.npz"
+            line = subprocess_driver(
+                "index_creation.load_index", "artifacts/store.npz",
+                f"artifacts/{art}", fam, cwd=tmp)[-1]
+            self_match[fam] = float(line.rsplit(" ", 1)[1])
+            check(line.startswith(f"loaded {fam} index: {len(head_words)} "
+                                  "rows") and self_match[fam]
+                  >= SELF_MATCH_FLOOR, f"load_index {fam}: {line}")
+            # the same load in-process, for its launches
+            _, counts, took = in_process(f"load_index_{fam}", lambda: module(
+                "index_creation.load_index").main(
+                    str(tmp / "artifacts" / "store.npz"),
+                    str(tmp / "artifacts" / art), fam), tmp)
+            log(f"[14] driver load_index {fam} in-process: {took:.1f} s, "
+                f"launches {counts} on {card}")
+        out["self_match@1"] = self_match
+
+        small_words, small = head_words[:MIGRATE_N], head_vecs[:MIGRATE_N]
+        write_word2vec_bin(tmp / "small.bin", small_words, small)
+        subprocess_driver("index_creation.transform_vecs", "small.bin",
+                          "small.txt", cwd=tmp)
+        text = (tmp / "small.txt").read_text().splitlines()
+        check(text[0] == f"{MIGRATE_N} {small.shape[1]}"
+              and [ln.split(" ", 1)[0] for ln in text[1:]] == small_words,
+              "transform_vecs wrote another header or other words")
+        back = np.array([[float(x) for x in ln.split(" ")[1:]]
+                         for ln in text[1:]], dtype=np.float32)
+        check(np.array_equal(back, small), "transform_vecs' text does not "
+              "read back equal to its rows")
+
+        eng = Freddy.build(VectorStore.from_arrays(small_words, small),
+                           seed=SEED, preset="reference", k_coarse=128,
+                           ivpq_k_coarse=16, train_size=None, iters=8)
+        eng.save(tmp / "engine")
+        del eng
+        subprocess_driver("index_creation.import_freddy", "export", "engine",
+                          "dump", cwd=tmp)
+        subprocess_driver("index_creation.import_freddy", "import", "dump",
+                          "engine_back", cwd=tmp)
+        for name in ("pq.npz", "ivfadc.npz", "ivpq.npz", "store.npz"):
+            a, b = (npz_arrays(tmp / d / name)
+                    for d in ("engine", "engine_back"))
+            check(a.keys() == b.keys() and all(
+                a[n].dtype == b[n].dtype and np.array_equal(a[n], b[n])
+                for n in a), f"import_freddy's round trip changed {name}")
+        out["offline_chain_s"] = time.perf_counter() - t_chain
+        log(f"[14] offline chain at {len(head_words)} x {head_vecs.shape[1]}"
+            f" (the first {OFFLINE_N} rows of the phase-4 store): "
+            f"self-match@1 {self_match}; transform_vecs equal; the FREDDY "
+            f"round trip bit-equal; {out['offline_chain_s']:.1f} s on {card}")
+
+        # ---- 2. the evaluation drivers at 3,072,000 x 300
+        def eval_config(name, **over):
+            body = json.loads(Path(REPO, "evaluation", "config",
+                                   name).read_text())
+            body.update(over)
+            path = tmp / f"eval_{name}"
+            path.write_text(json.dumps(body))
+            return str(path)
+
+        jax_tp = {(r["method"], r.get("alpha"),
+                   r.get("pvf") if r["method"] == 2 else None): r["precision"]
+                  for r in json.loads(Path(
+                      REPO, "reports", "time_precision_records.json")
+                      .read_text())}
+        by_call: dict = {}
+        cfg = eval_config("time_precision_full.json",
+                          plot_path=str(tmp / "time_precision.png"))
+        with launches_by_join_call(kernels, Freddy, by_call):
+            recs, counts, took = in_process(
+                "time_precision_eval", lambda: module(
+                    "evaluation.time_precision_eval").main(cfg), tmp)
+        check((tmp / "time_precision.html").stat().st_size > 10_000,
+              "time_precision_eval wrote no HTML report")
+        for r in recs:
+            key = (r["method"], r.get("alpha"),
+                   r.get("pvf") if r["method"] == 2 else None)
+            log(f"[14] time_precision_full method {r['method']} alpha "
+                f"{r.get('alpha')} pvf {r.get('pvf')}: precision@5 "
+                f"{r['precision']:.4f} (JAX record {jax_tp.get(key)}), "
+                f"{r['time_s']:.3f} s on {card}")
+        best = {m: max(r["precision"] for r in recs if r["method"] == m
+                       and r.get("alpha") == 200) for m in (1, 2)}
+        check(best[2] >= FLOORS["join_m2_a200@5"], f"time_precision_full "
+              f"method 2 alpha 200 precision {best[2]:.4f} < "
+              f"{FLOORS['join_m2_a200@5']}")
+        check(best[1] >= FLOORS["join_m1_a200@5"], f"time_precision_full "
+              f"method 1 alpha 200 precision {best[1]:.4f} < "
+              f"{FLOORS['join_m1_a200@5']}")
+        budget_adc = ("budget_adc", "budget_adc_grouped")
+        budget_exact = ("budget_exact", "budget_exact_grouped")
+        for label, want in (("m0", budget_adc), ("m2", budget_adc),
+                            ("m1", budget_exact),
+                            ("pq_in_batch", ("adc_scan",))):
+            check(any(by_call.get(label, {}).get(k, 0) > 0 for k in want),
+                  f"time_precision_full {label} launched "
+                  f"{by_call.get(label)}, none of {want}")
+        out["time_precision_full"] = {"records": recs, "by_call": by_call}
+        log(f"[14] driver time_precision_eval: {took:.1f} s, launches "
+            f"{counts}, by call {by_call}; best precision@5 at alpha 200: "
+            f"method 1 {best[1]:.4f}, method 2 {best[2]:.4f} on {card}")
+
+        cfg = eval_config("step_wise_3M.json", out=str(tmp / "step_wise.json"))
+        recs, counts, took = in_process("step_wise_time_measurement",
+                                        lambda: module(
+            "evaluation.step_wise_time_measurement").main(cfg), tmp)
+        stages = ("precomputation_time", "data_retrieval_time",
+                  "computation_time", "total_time", "query_construction_time")
+        for r in recs:
+            check(all(s in r["stages"] for s in stages)
+                  and r["inner_s"] <= r["wall_s"],
+                  f"step_wise record {r['method']} {r['queries']}: stages "
+                  f"{sorted(r['stages'])}, inner {r['inner_s']} wall "
+                  f"{r['wall_s']}")
+        check(json.loads((tmp / "step_wise.json").read_text()) == recs,
+              "step_wise's out file differs from its printout")
+        out["step_wise"] = recs
+        log(f"[14] driver step_wise_time_measurement: {took:.1f} s, launches"
+            f" {counts}; " + "; ".join(
+                f"{r['method']} q={r['queries']} wall {r['wall_s']:.4f} inner"
+                f" {r['inner_s']:.4f} compile {r['compile_s']:.3f} s"
+                for r in recs) + f" on {card}")
+
+        conf_cfg = eval_config("confidence_eval_3M.json")
+        flex_cfg = eval_config("flexible_pq_3M.json")
+        recs, counts, took = in_process("confidence_eval", lambda: module(
+            "evaluation.confidence_eval").main(conf_cfg), tmp)
+        for r in recs:
+            check(r["fraction_met"] >= r["confidence"], f"confidence_eval: "
+                  f"the guarantee fails at {r}")
+        out["confidence_eval"] = recs
+        log(f"[14] driver confidence_eval: {took:.1f} s, launches {counts}; "
+            + ", ".join(f"c {r['confidence']}: met {r['fraction_met']:.2f} "
+                        f"(retrieved {r['mean_retrieved']:.1f})"
+                        for r in recs) + f" on {card}")
+        res, counts, took = in_process("target_counts", lambda: module(
+            "evaluation.target_counts").main(conf_cfg), tmp)
+        div = res["mean_abs_rel_divergence"]
+        check(div <= TARGET_COUNT_CEILING, f"target_counts: mean abs rel "
+              f"divergence {div:.4f} > {TARGET_COUNT_CEILING}")
+        out["target_counts_divergence"] = div
+        log(f"[14] driver target_counts: {took:.1f} s, launches {counts}; "
+            f"mean abs rel divergence {div:.4f} (the JAX record "
+            f"reports/target_counts_3M.json: 0.0260) on {card}")
+        recs, counts, took = in_process("flexible_pq_eval", lambda: module(
+            "evaluation.flexible_pq_eval").main(flex_cfg), tmp)
+        for r in recs:
+            gap = abs(r["long_codes"]["precision"]
+                      - r["short_codes"]["precision"])
+            check(gap <= 0.02, f"flexible_pq_eval: long and short codes "
+                  f"differ by {gap:.4f} at {r['targets']} targets")
+        out["flexible_pq_eval"] = recs
+        log(f"[14] driver flexible_pq_eval: {took:.1f} s, launches {counts};"
+            " " + ", ".join(
+                f"{r['targets']} targets alpha {r['alpha']}: long "
+                f"{r['long_codes']['precision']:.4f} in "
+                f"{r['long_codes']['time_s']:.4f} s, short "
+                f"{r['short_codes']['precision']:.4f} in "
+                f"{r['short_codes']['time_s']:.4f} s" for r in recs)
+            + f" on {card}")
+
+        # ---- 3. the small drivers and the examples
+        tm_cfg = Path(REPO, "evaluation", "config", "time_measurement.json")
+        for method in ("default", "defaultpv", "sizedependend",
+                       "postverification", "batch", "batch-precision"):
+            cfg = eval_config("time_measurement.json", method=method)
+            res, counts, took = in_process(
+                f"time_measurement_{method}", lambda: module(
+                    "evaluation.time_measurement").main(cfg), tmp)
+            keys = {k: v for k, v in res.items()
+                    if k not in ("method", "k", "queries")}
+            log(f"[14] driver time_measurement {method}: {took:.1f} s, "
+                f"launches {counts}; {json.dumps(keys)[:400]} on {card}")
+        res, counts, took = in_process("vec_distr", lambda: module(
+            "evaluation.vec_distr").main(str(tm_cfg)), tmp)
+        check(-1 <= res["farthest_cos"]["mean"] < res["nearest_cos"]["mean"]
+              <= 1, f"vec_distr: {res}")
+        log(f"[14] driver vec_distr: {took:.1f} s, launches {counts}; "
+            f"nearest cos {res['nearest_cos']['mean']:.4f}, farthest "
+            f"{res['farthest_cos']['mean']:.4f} on {card}")
+        eng, counts, took = in_process("quickstart", lambda: module(
+            "examples.quickstart").main(), tmp)
+        check(eng.store.device.type == "cuda" and eng.store.size == 2001,
+              "the quickstart's engine is not on the card")
+        del eng
+        tuned = [ln for ln in (tmp / "quickstart.out").read_text()
+                 .splitlines() if ln.startswith("autotune")]
+        log(f"[14] driver quickstart: {took:.1f} s, launches {counts}; "
+            f"{tuned} on {card}")
+        health, counts, took = in_process("serving", lambda: module(
+            "examples.serving").main(), tmp)
+        check("serving example OK" in (tmp / "serving.out").read_text()
+              and health["vocab"] == 2001, f"serving example: {health}")
+        log(f"[14] driver serving: {took:.1f} s, launches {counts}; health "
+            f"{health} on {card}")
+        res, counts, took = in_process("multichip", lambda: module(
+            "examples.multichip").main(4, 1), tmp)
+        check("not multi-GPU scaling" in (tmp / "multichip.out").read_text()
+              and res["exact"] == 1.0, f"multichip example: {res}")
+        log(f"[14] driver multichip (4 x 1 entries of the one card: "
+            f"shard-and-merge overhead, not multi-GPU scaling): {took:.1f} s,"
+            f" launches {counts}; self-match@1 {res} on {card}")
+        out["multichip"] = res
+    check(not sb.child_processes(), f"processes left after the drivers: "
+          f"{sb.child_processes()}")
+    check(reports_digest() == before_reports, "a driver changed reports/")
+    return out
+
+
+def engine_phases(torch, args) -> dict:
+    """Phases 1-13 on the phase-4 engine → the numbers the summary lines
+    print, the launches of each path, and the head of the phase-4 store
+    (OFFLINE_N words and rows, on the host) for phase 14. Returning drops
+    the engine and its tables."""
     from postgres_word2vec_tpu_torch import ExactIndex, Freddy, VectorStore
     from postgres_word2vec_tpu_torch.evaluation import synth
     from postgres_word2vec_tpu_torch.models import ivfadc as ivfadc_mod
@@ -2816,35 +3226,76 @@ def main() -> int:
     inserted = insert_phase(torch, ExactIndex, eng, exact8, run_path,
                             path_launches, card)
     log(f"[13] path after_insert launched {path_launches['after_insert']}")
-    launches = tally()
+    numbers = {k.name: {
+        "max_abs_err": errs[k.name], "ms": kernel_ms[k.name],
+        "plain_ms": plain_ms[k.name], "bound_ms": bounds[k.name][0],
+        "bound_by": bounds[k.name][1], "bound_term": bounds[k.name][2],
+        "library_ms": library_ms[k.name]} for k in kernels.KERNELS.values()}
+    report = {"recall": rec, "paths_ms_per_query": times,
+              "insert": inserted, "engine": engine,
+              "serving": serving, "builders": built_rows,
+              "aniso": aniso, "harness": evaluation,
+              "sharding": sharded,
+              "path_launches": path_launches,
+              "sweep_ms": sweep, "budget_adc_join_ms": k6_ms,
+              "budget_adc_join_bounds": k6_bounds,
+              "budget_adc_grouped_bound_all_pairs": k7_bound_all,
+              "pair_layout_ms": layout_ms, "budget_exact_ms": k9_ms,
+              "budget_exact_library_batch_ms": k9_library_batch_ms,
+              "wrapper_kernels": wrapper_kernels,
+              "adc_scan_library_err": k2_library_err,
+              "adc_scan_int8_library_err": k3_library_err,
+              "budget_library_err": library_err,
+              "join_100k_groups": group_stats,
+              "inf_tile_share": inf_share, "gpu": card}
+    head = (words[:OFFLINE_N], store.vectors[:OFFLINE_N].cpu().numpy())
+    return {"report": report, "numbers": numbers, "card": card,
+            "path_launches": path_launches, "head": head}
 
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile", metavar="OUT.json",
+                    help="also profile each path and write the report here")
+    args = ap.parse_args()
+    started = time.perf_counter()
+    import gc
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs only on a GPU",
+              file=sys.stderr)
+        return 1
+    from postgres_word2vec_tpu_torch.ops import kernels
+
+    res = engine_phases(torch, args)
+    card, path_launches = res["card"], res["path_launches"]
+
+    # ------------------------------------------------ 14: the CLI drivers
+    # the phase-4 engine, the sharded one and their tables are gone with
+    # engine_phases' frame: give the drivers' own 3M engines the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[14] phases 1-13 released: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
+    t0 = time.perf_counter()
+    res["report"]["drivers"] = drivers_phase(torch, *res["head"],
+                                             path_launches, card)
+    log(f"[14] drivers phase took {time.perf_counter() - t0:.1f} s")
+
+    launches = {name: 0 for name in kernels.KERNELS}
+    for counts in path_launches.values():
+        for name, v in counts.items():
+            launches[name] += v
     summary = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],
-         "max_abs_err": errs[k.name], "ms": kernel_ms[k.name],
-         "plain_ms": plain_ms[k.name], "bound_ms": bounds[k.name][0],
-         "bound_by": bounds[k.name][1], "bound_term": bounds[k.name][2],
-         "library_ms": library_ms[k.name]}
+         **res["numbers"][k.name]}
         for k in kernels.KERNELS.values()]}
     stop_children()
-    log(f"[14] the whole run took {time.perf_counter() - started:.1f} s")
-    log(json.dumps({"recall": rec, "paths_ms_per_query": times,
-                    "insert": inserted, "engine": engine,
-                    "serving": serving, "builders": built_rows,
-                    "aniso": aniso, "harness": evaluation,
-                    "sharding": sharded,
-                    "path_launches": path_launches,
-                    "sweep_ms": sweep, "budget_adc_join_ms": k6_ms,
-                    "budget_adc_join_bounds": k6_bounds,
-                    "budget_adc_grouped_bound_all_pairs": k7_bound_all,
-                    "pair_layout_ms": layout_ms, "budget_exact_ms": k9_ms,
-                    "budget_exact_library_batch_ms": k9_library_batch_ms,
-                    "wrapper_kernels": wrapper_kernels,
-                    "adc_scan_library_err": k2_library_err,
-                    "adc_scan_int8_library_err": k3_library_err,
-                    "budget_library_err": library_err,
-                    "join_100k_groups": group_stats,
-                    "inf_tile_share": inf_share, "gpu": card}))
+    log(f"[end] the whole run took {time.perf_counter() - started:.1f} s")
+    log(json.dumps(res["report"]))
     log(json.dumps(summary))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

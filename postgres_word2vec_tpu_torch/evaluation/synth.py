@@ -1,16 +1,24 @@
-"""GoogleNews-like synthetic embeddings, drawn on the device.
+"""Synthetic embeddings, drawn on the device.
 
-Counterpart of ``generate_wordlike`` in
-``postgres_word2vec_tpu/evaluation/synth.py`` with the same calibrated V3
-parameters (fringe tier on). It draws from a ``torch.Generator``, so its
-numbers differ from JAX's for the same seed; its geometry does not: the
-same power-law spectrum, topic → concept → variant hierarchy, fringe tier
-and random rotation.
+Counterpart of ``postgres_word2vec_tpu/evaluation/synth.py``:
+``generate_wordlike`` with the same calibrated V3 parameters (fringe tier
+on) and the V2 parameters of the recall-ceiling control, and
+``generate_mixture``, round 1's flat cluster mixture with planted
+neighbours. Both draw from a ``torch.Generator``, so their numbers differ
+from JAX's for the same seed; their geometry does not: the same power-law
+spectrum, topic → concept → variant hierarchy, fringe tier and random
+rotation, and the same mixture of 1024 centres with planted neighbours.
 """
 
 from __future__ import annotations
 
 import torch
+
+#: round-2 calibration (scan-point parity only), kept for the
+#: recall-ceiling control's "before" comparison; ``fringe_frac=0.0`` is
+#: explicit, since the V3 defaults turn the fringe tier on.
+V2_PARAMS = dict(group=8, beta=0.55, sigma_c=0.7, sigma_v=0.55,
+                 fringe_frac=0.0)
 
 #: round-3 calibration (= generate_wordlike defaults), as in the JAX
 #: package: fringe-tier geometry whose reference-equivalent control clears
@@ -25,6 +33,31 @@ def _orthogonal(generator: torch.Generator, d: int) -> torch.Tensor:
     z = torch.randn(d, d, generator=generator, device=generator.device)
     q, r = torch.linalg.qr(z)
     return q * torch.sign(torch.diagonal(r))[None, :]
+
+
+def generate_mixture(generator: torch.Generator, n: int, d: int = 300,
+                     eval_q: int = 256) -> torch.Tensor:
+    """Round-1 generator → ``(n, d)`` float32, L2-normed, on
+    ``generator.device``: an isotropic mixture of 1024 Gaussian centres
+    (noise 0.7), then 16 planted neighbours for each of the first
+    ``eval_q`` rows, each its row plus 0.25 noise, renormalized, written
+    over distinct rows drawn from ``eval_q..n-1``. Hard for PQ: the
+    isotropic within-cluster noise swamps the neighbour gaps."""
+    dev = generator.device
+    n_plant = 16
+    centers = torch.randn(1024, d, generator=generator, device=dev)
+    assign = torch.randint(0, 1024, (n,), generator=generator, device=dev)
+    v = centers[assign] + 0.7 * torch.randn(n, d, generator=generator,
+                                            device=dev)
+    v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    plant_ids = torch.randperm(n - eval_q, generator=generator,
+                               device=dev)[:eval_q * n_plant] + eval_q
+    src = v[:eval_q].repeat_interleave(n_plant, dim=0)
+    planted = src + 0.25 * torch.randn(src.shape, generator=generator,
+                                       device=dev)
+    v[plant_ids] = planted / torch.linalg.vector_norm(planted, dim=-1,
+                                                      keepdim=True)
+    return v
 
 
 def generate_wordlike(generator: torch.Generator, n: int, d: int = 300, *,

@@ -74,7 +74,8 @@ class _MicroBatcher:
     ``fn(items) -> results`` runs on a worker thread; ``submit(item)``
     blocks until the item's result is ready. The worker drains whatever is
     queued after the first item has waited ``window_ms`` (or immediately at
-    ``max_batch``).
+    ``max_batch``). :meth:`close` ends the worker once the queue is empty,
+    so that it no longer holds ``fn`` (and through it the engine).
     """
 
     def __init__(self, fn, *, max_batch: int = 64, window_ms: float = 2.0):
@@ -88,8 +89,16 @@ class _MicroBatcher:
         self.max_coalesced = 0
         self.busy_s = 0.0          # wall time spent inside fn (device path)
         self.items_done = 0
+        self._closed = False
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
+
+    def close(self, timeout: float = 5.0) -> None:
+        """Stop the worker after it has served what is queued."""
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        self._worker.join(timeout=timeout)
 
     def submit(self, item):
         slot = {"item": item, "event": threading.Event(), "result": None,
@@ -105,8 +114,10 @@ class _MicroBatcher:
     def _run(self):
         while True:
             with self._cv:
-                while not self._queue:
+                while not self._queue and not self._closed:
                     self._cv.wait()
+                if not self._queue:
+                    return
                 deadline = time.monotonic() + self._window
                 while len(self._queue) < self._max_batch:
                     remaining = deadline - time.monotonic()
@@ -540,6 +551,8 @@ class QueryServer:
         self.httpd.server_close()
         if self._thread:
             self._thread.join(timeout=5)
+        self._knn_batcher.close()
+        self._knn_in_batcher.close()
 
     def serve_forever(self) -> None:
         self.httpd.serve_forever()

@@ -11,6 +11,19 @@ from pathlib import Path
 import postgres_word2vec_tpu_torch
 
 REPO = Path(__file__).resolve().parent.parent
+#: the command-line drivers, one for each script of the repository's
+#: index_creation/, evaluation/ and examples/ directories that is ported
+CLI_MODULES = tuple(
+    f"cli.{group}.{name}" for group, names in (
+        ("index_creation", ("vec2database", "transform_vecs", "pq_index",
+                            "ivfadc", "ivpq", "load_index",
+                            "import_freddy")),
+        ("evaluation", ("time_measurement", "time_precision_eval",
+                        "step_wise_time_measurement", "confidence_eval",
+                        "target_counts", "flexible_pq_eval",
+                        "vec_distr")),
+        ("examples", ("quickstart", "serving", "multichip")))
+    for name in names) + ("cli._common",)
 
 
 def _port_modules():
@@ -30,7 +43,8 @@ def test_the_port_has_the_slice_modules():
                  "server_async", "evaluation.synth", "evaluation.join_wall",
                  "evaluation.benchutil", "evaluation.harness",
                  "evaluation.plots", "evaluation.html_report",
-                 "evaluation.serving_bench", "parallel.sharding"):
+                 "evaluation.serving_bench", "parallel.sharding",
+                 *CLI_MODULES):
         assert f"postgres_word2vec_tpu_torch.{name}" in mods, name
 
 
@@ -49,6 +63,30 @@ def test_every_port_module_imports_with_jax_blocked():
                        for m, v in sys.modules.items() if v is not None)
         assert not torch.cuda.is_initialized()
         assert _build._lib is None         # no kernel built or loaded
+        print("clean")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_every_cli_module_imports_with_jax_blocked():
+    """Each driver imports with ``jax``, ``aiohttp`` and ``matplotlib``
+    blocked, and imports nothing of the JAX package nor of the root
+    ``evaluation/`` and ``index_creation/`` directories."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        for blocked in ("jax", "aiohttp", "matplotlib"):
+            sys.modules[blocked] = None
+        for name in {CLI_MODULES!r}:
+            importlib.import_module("postgres_word2vec_tpu_torch." + name)
+        import torch
+        assert not any(m.split(".")[0] in (
+            "jax", "aiohttp", "matplotlib", "postgres_word2vec_tpu",
+            "evaluation", "index_creation", "_common")
+            for m, v in sys.modules.items() if v is not None)
+        assert not torch.cuda.is_initialized()
         print("clean")
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -3,8 +3,29 @@ numpy inputs (imported by tests/test_torch_*.py): conversions, small
 clustered data, the small JAX engines the engine tests load in the port
 (:func:`save_jax_engine`), and tests of the helpers' own tie rules."""
 
+import importlib.util
+import sys
+from pathlib import Path
+
 import numpy as np
 import torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def jax_script(rel: str):
+    """A repository driver script (``index_creation/…``, ``evaluation/…``,
+    ``examples/…``), imported from its file under a name of its own, its
+    directory put on ``sys.path`` as running it would."""
+    path = REPO / rel
+    name = "jax_cli_" + rel.replace("/", "_").removesuffix(".py")
+    if name not in sys.modules:
+        sys.path.insert(0, str(path.parent))
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules[name]
 
 
 def to_jax(a):

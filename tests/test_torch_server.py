@@ -172,3 +172,24 @@ def test_prepare_targets_serves_named_joins(batching):
     _, named = http_call(batching.port, "/knn_join",
                          {**body, "targets": "dom"})
     assert adhoc["result"] == named["result"]
+
+
+def test_a_stopped_server_releases_its_engine(engine_dir):
+    """``stop`` ends the /knn and /knn_in batcher threads once they are
+    idle, so the server no longer holds its engine (on the card, its
+    tables): a served request is answered first, then nothing of the
+    server stays alive."""
+    import gc
+    import weakref
+
+    eng = Freddy.load(engine_dir, device="cpu")
+    ref = weakref.ref(eng)
+    srv = QueryServer(eng, port=0).start()
+    code, r = http_call(srv.port, "/knn", {"query": "w3", "k": 2})
+    assert code == 200 and r["result"][0][0] == "w3"
+    workers = [srv._knn_batcher._worker, srv._knn_in_batcher._worker]
+    srv.stop()
+    assert not any(w.is_alive() for w in workers)
+    del srv, eng, r
+    gc.collect()
+    assert ref() is None
