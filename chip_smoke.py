@@ -70,7 +70,7 @@ a user calls, and holds every hand-written kernel to its plain version:
    the 100,000-row target set (exact and PQ cores), /knn_join with
    16-query requests against the prepared set (method 2, alpha 200), each
    window a path with its QPS, p50/p99, errors, coalesced batch, stage
-   times and the card's busy share over one profiled second; 256 served
+   times and the card's busy share over one sampled second; 256 served
    answers a family held to the engine's own batched call; every other
    endpoint once; a bad word coalesced with good ones failing alone;
    ``pipeline_depth`` 1, 2 and 4; the echo floor of the same fleet; one
@@ -124,7 +124,19 @@ a user calls, and holds every hand-written kernel to its plain version:
     ceiling, ``flexible_pq_eval``); ``time_measurement`` in its six
     methods, ``vec_distr`` and the three examples (the mesh one on 4 × 1
     entries of the card); each driver's wall time, launches and key
-    numbers; nothing under ``reports/`` changes.
+    numbers; nothing under ``reports/`` changes;
+15. the research drivers (``cli/evaluation``) in-process, each at its
+    JAX record's scale and flags: ``roofline`` (the card's ceilings, the
+    exact bf16 and int8 and the PQ ADC scans at 3M), ``recall_ceiling``
+    (v3, 3,072,000 rows, the reference quality), ``synth_calibrate``
+    (307,200 rows, configs v2 and f15), ``join_nq_sweep`` and
+    ``join_method_diag`` at 3M, ``scale_capacity`` at 10,240,000 rows in
+    both PQ regimes and ``scale_join_10M`` (5,000 queries against all
+    10,240,000 rows); each driver's wall time, launches, peak memory and
+    key numbers beside the JAX record's, held to floors; the memory
+    allocated after each is under 1 GiB; K4 at 10.24M rows and 60×16 and
+    the 10.24M join's budget kernel held to their plain versions on their
+    main-path launch; nothing under ``reports/`` changes.
 
 Usage: ``python3 chip_smoke.py [--profile OUT.json]`` from the repository
 root, on a machine with one CUDA GPU. It fails (non-zero exit, no result
@@ -222,16 +234,52 @@ INSERT_FLOORS = {"pq_pv20_self@5": 0.9, "ivfadc_pv20_self@5": 0.8}
 # target-count model's mean relative error (the JAX 3M record: 2.6 %)
 OFFLINE_N, STATS_WORDS = 262_144, 20_000
 SELF_MATCH_FLOOR, TARGET_COUNT_CEILING = 0.75, 0.10
+# the research drivers phase: each driver's arguments (its JAX record's
+# scale and flags; synth_calibrate runs two of its 35 configs), and floors
+# that catch a broken path, not drift, set below the JAX records in
+# reports/ (their values in the comments) by margins like FLOORS'. The
+# drivers' rows are drawn on the card, so they differ from the records'.
+SCALE_N = 10_240_000
+RESEARCH_ARGS = {
+    "roofline": [],
+    "recall_ceiling": ["--gen", "v3", "--n", "3072000",
+                       "--quality", "reference"],
+    "synth_calibrate": ["--n", "307200", "--configs", "v2,f15"],
+    "join_nq_sweep": [],
+    "join_method_diag": [],
+    "scale_capacity_reference": ["--n", str(SCALE_N), "--pq", "reference"],
+    "scale_capacity_quality": ["--n", str(SCALE_N), "--pq", "quality",
+                               "--skip-exact"],
+    "scale_join_10M": ["--n", str(SCALE_N), "--nq", "5000"],
+}
+RESEARCH_FLOORS = {
+    # recall_ceiling_v3_3M.json: 0.428, 0.907, 0.530, 0.918
+    "recall_ceiling": {"pq@5": 0.33, "pq_pv@5": 0.84, "ivfadc@5": 0.40,
+                       "ivfadc_pv@5": 0.84},
+    # synth_calib_307k.json: v2 0.585, 0.973; f15 is V3, whose 3M record
+    # (recall_ceiling_v3_3M.json) has 0.428, 0.907
+    "synth_calibrate": {"v2": {"pq@5": 0.45, "pq_pv@5": 0.88},
+                        "f15": {"pq@5": 0.33, "pq_pv@5": 0.84}},
+    # join_nq_sweep_3M.json: exact f32 1.0, bf16 0.991, a2400 0.909
+    "join_nq_sweep": {"exact_f32": 1.0, "exact_bf16": 0.95,
+                      "ivpq_pv_a2400": 0.80},
+    # scale_10M_reference.json, recall@10: exact 0.989, PQ 0.347, PV 0.723
+    "scale_capacity_reference": {"exact_batch": 0.95, "pq_scan": 0.25,
+                                 "pq_pv_20": 0.62},
+    # scale_10M_quality.json, recall@10: PQ 0.745, PV 0.992
+    "scale_capacity_quality": {"pq_scan": 0.60, "pq_pv_20": 0.95},
+    # scale_join_10M.json, recall@5: exact bf16 0.995, a600 0.612, a4800
+    # 0.909
+    "scale_join_10M": {"exact_bf16": 0.95, "ivpq_join_pv_a600": 0.50,
+                       "ivpq_join_pv_a4800": 0.80},
+    # the card's ceilings (roofline_3M.json holds a TPU's): far below the
+    # H100's data-sheet peaks of 3,350 GB/s, 989 and 1,979 TFLOP/s
+    "roofline": {"hbm_read_gbps": 1500.0, "mxu_bf16_tflops": 300.0,
+                 "mxu_int8_tops": 300.0},
+}
+# recall may fall by at most this much from one alpha to the next larger
+ALPHA_SLACK = 0.005
 REPO = os.path.dirname(os.path.abspath(__file__))
-# The H100 SXM's published peaks (NVIDIA's data sheet, dense rates at
-# 700 W): HBM3 bytes/s, bf16 tensor-core and float32 CUDA-core
-# operations/s. The ADC lookups (float or int32 adds) and K9/K10's products
-# run on CUDA cores.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}
-# Shared memory delivers 128 bytes per clock on each SM (32 banks of 4
-# bytes); its rate is that times the SMs times the card's max SM clock.
-SMEM_BYTES_PER_CLOCK = 128
 
 
 def check(cond: bool, msg: str) -> None:
@@ -384,32 +432,6 @@ def p50(xs):
     s = sorted(xs)
     return s[len(s) // 2] if len(s) % 2 else 0.5 * (s[len(s) // 2 - 1]
                                                     + s[len(s) // 2])
-
-
-def smem_bytes_per_s(torch) -> float:
-    """The card's shared-memory rate: SMEM_BYTES_PER_CLOCK on each SM at
-    its max SM clock (``nvidia-smi --query-gpu=clocks.max.sm``)."""
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                          "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, check=True,
-                         timeout=60)
-    mhz = float(out.stdout.split()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return SMEM_BYTES_PER_CLOCK * sms * mhz * 1e6
-
-
-def bound(nbytes: float, ops: float, kind: str, shared: float = 0.0,
-          shared_rate: float = 1.0) -> tuple[float, str, str]:
-    """The least time in ms the card could take: the largest of the bytes
-    over HBM bandwidth, the ``shared`` bytes (the ADC kernels' LUT
-    lookups) over ``shared_rate``, and the operations over the peak rate
-    of ``kind``. → (ms, "bytes" or "operations", the term that set it:
-    "hbm", "shared" or "operations")."""
-    times = {"hbm": nbytes / HBM_BYTES_PER_S, "shared": shared / shared_rate,
-             "operations": ops / PEAK_OPS[kind]}
-    term = max(times, key=times.get)
-    return (times[term] * 1e3,
-            "operations" if term == "operations" else "bytes", term)
 
 
 def budget_err(torch, got, want, name: str, what: str) -> float:
@@ -1150,7 +1172,7 @@ def serving_phase(torch, eng, fused, run_path, path_launches: dict,
     prepared set (method 2, alpha 200); each window is a path (launch
     counts set to 0 before it, read after it), reports QPS, p50/p99,
     errors, the mean and max coalesced batch, the stage times and the card's
-    busy share over one profiled second, and fails on any error. Then
+    busy share over one second (NVML samples), and fails on any error. Then
     SERVE_CHECK served answers a family are held to the engine's own
     batched call, every other endpoint is called once, a bad word
     coalesced with good ones fails alone, ``pipeline_depth`` 1 and 4 get
@@ -1158,7 +1180,6 @@ def serving_phase(torch, eng, fused, run_path, path_launches: dict,
     threaded ``QueryServer`` one exact window."""
     import dataclasses
     import os
-    import tempfile
 
     import numpy as np
 
@@ -1173,8 +1194,6 @@ def serving_phase(torch, eng, fused, run_path, path_launches: dict,
     eng.set_pq_lut_dtype("bf16")
     eng.set_pvf(20)
     eng.set_w(3)
-    traces = tempfile.TemporaryDirectory()
-    tmp = traces.name
     out = {"windows": {}, "checks": {}, "cpus": os.cpu_count(),
            "clients": SERVE_CLIENTS, "gpu": card}
     rng = np.random.default_rng(SEED)
@@ -1194,8 +1213,7 @@ def serving_phase(torch, eng, fused, run_path, path_launches: dict,
             before = (stats.batched_calls, stats.items_done)
             stats.max_coalesced = 0
         w = run_path(f"serve_{name}", lambda: fleet.window(
-            srv.port, N, K, seconds, profile_dir=os.path.join(tmp, name),
-            **kw))
+            srv.port, N, K, seconds, busy=True, **kw))
         w["launches"] = path_launches[f"serve_{name}"]
         w["stage_s"] = {k: v - before_stage[k]
                         for k, v in srv.runner.stage_s.items()}
@@ -1369,7 +1387,6 @@ def serving_phase(torch, eng, fused, run_path, path_launches: dict,
     check(not left, f"processes left after the client fleet: {left}")
     log("[8] the client fleet and the resource tracker stopped: no child "
         "process left")
-    traces.cleanup()
     eng.exact = saved_exact
     eng.params = dataclasses.replace(saved_params)
     eng.dispatch = dict(saved_dispatch)
@@ -2213,6 +2230,284 @@ def drivers_phase(torch, head_words, head_vecs, path_launches: dict,
     return out
 
 
+# --------------------------------------------- 15: the research drivers
+@contextlib.contextmanager
+def held_to_plain(torch, kernels, names: tuple[str, ...], plain, when,
+                  found: dict):
+    """While the block runs, the first launch of any of the kernels
+    ``names`` whose arguments satisfy ``when`` is held to ``plain`` on the
+    same arguments, at ``TOL``: its error and shapes are put in ``found``.
+    The main path's own launch is the one compared; the plain version
+    launches no kernel."""
+    saved = {name: getattr(kernels, name) for name in names}
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            if not found and when(*args, **kw):
+                want = plain(*args, **kw)
+                if isinstance(out, tuple):
+                    err = float((out[0] - want[0]).abs().max())
+                    check(torch.equal(out[1], want[1]) and err <= TOL[name],
+                          f"{name}: ids or mins differ from the plain "
+                          f"version (mins err {err})")
+                else:
+                    err = budget_err(torch, out, want, name, "research")
+                found.update(name=name, err=err,
+                             shapes=[tuple(a.shape) for a in args
+                                     if hasattr(a, "shape")])
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(kernels, name, wrap(name, fn))
+    try:
+        yield found
+    finally:
+        for name, fn in saved.items():
+            setattr(kernels, name, fn)
+
+
+def research_phase(torch, path_launches: dict, card: str) -> dict:
+    """Phase 15: the research drivers (``cli/evaluation``) in-process on
+    the card, each at its JAX record's scale and flags (RESEARCH_ARGS),
+    every file they write in a temporary directory. For each: its wall
+    time, its launches (counted from 0, kept in ``path_launches`` under
+    ``research_<name>``), its peak allocated memory and its key numbers
+    beside the JAX record's, held to RESEARCH_FLOORS; the memory allocated
+    after it returns must be under 1 GiB. K4 at 10,240,000 rows and 60×16
+    (the quality regime's PQ scan) and the budget kernel of the 10.24M
+    join's first call (the plan of one call) are held to their plain
+    versions on their main-path launch; nothing under ``reports/``
+    changes."""
+    import gc
+    import importlib
+    import io
+    import tempfile
+    from pathlib import Path
+
+    from postgres_word2vec_tpu_torch.ops import kernels
+
+    before_reports = reports_digest()
+    out = {"wall_s": {}, "launches": {}, "peak_gib": {}, "records": {}}
+
+    def jax_record(name):
+        return json.loads(Path(REPO, "reports", name).read_text())
+
+    def run(label, module, args, tmp, hold=None):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        outs = [] if module in ("roofline", "join_method_diag") else [
+            "--out", str(tmp / f"{label}.json")]
+        main = importlib.import_module(
+            f"postgres_word2vec_tpu_torch.cli.evaluation.{module}").main
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), (
+                hold or contextlib.nullcontext()):
+            res = main([*args, *outs])
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        path_launches[f"research_{label}"] = counts
+        out["wall_s"][label], out["launches"][label] = took, counts
+        out["peak_gib"][label], out["records"][label] = peak, res
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() / 2**30
+        check(left < 1.0, f"{label}: {left:.2f} GiB still allocated after "
+              "the driver returned")
+        log(f"[15] driver {label}: {took:.1f} s, launches {counts}, peak "
+            f"{peak:.2f} GiB, {left:.2f} GiB left after it on {card}")
+        return res, counts
+
+    def floor(label, what, got, want_floor, jax=None):
+        check(got >= want_floor, f"{label} {what} {got:.4f} < "
+              f"{want_floor}")
+        log(f"[15] {label} {what}: {got:.4f} (floor {want_floor}"
+            + (f", JAX record {jax}" if jax is not None else "") + ")")
+
+    def launched(label, counts, want):
+        check(any(counts.get(k, 0) > 0 for k in want),
+              f"{label} launched {counts}, none of {want}")
+
+    def rising(label, recalls):
+        check(all(b >= a - ALPHA_SLACK for a, b in zip(recalls, recalls[1:])),
+              f"{label}: recall does not rise with alpha: {recalls}")
+
+    budget = ("budget_adc", "budget_adc_grouped")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # ---- roofline: the card's ceilings, then the scans at 3M
+        res, counts = run("roofline", "roofline", RESEARCH_ARGS["roofline"],
+                          tmp)
+        launched("roofline", counts, ("adc_scan",))
+        ceil, jr = res["ceilings"], jax_record("roofline_3M.json")
+        for key, fl in RESEARCH_FLOORS["roofline"].items():
+            floor("roofline", key, ceil[key], fl)
+        log(f"[15] roofline ceilings on {card}: HBM read "
+            f"{ceil['hbm_read_gbps']:.1f} GB/s (probes "
+            f"{[round(r, 1) for r in ceil['hbm_probe_gbps']]}), bf16 "
+            f"{ceil['mxu_bf16_tflops']:.1f} TFLOP/s, int8 "
+            f"{ceil['mxu_int8_tops']:.1f} TOP/s (data sheet 3,350 GB/s, "
+            f"989, 1,979)")
+        for name, v in res["kernels"].items():
+            log(f"[15] roofline {name}: {v['wall_s'] * 1e3:.3f} ms, "
+                f"{v['gbps']:.1f} GB/s, {v['roofline']} bound, "
+                f"{v['pct_of_bound']} % of bound"
+                + (f" (card bound {v['bound_ms']:.4f} ms, "
+                   f"{v['bound_term']}; {v['pct_of_measured_hbm']} % of "
+                   f"the measured HBM rate)" if "bound_ms" in v else "")
+                + f"; JAX record {jr['kernels'][name]['pct_of_bound']} % "
+                f"on its TPU, on {card}")
+
+        # ---- the recall ceiling at 3M
+        res, counts = run("recall_ceiling", "recall_ceiling",
+                          RESEARCH_ARGS["recall_ceiling"], tmp)
+        launched("recall_ceiling", counts, ("adc_scan",))
+        launched("recall_ceiling", counts, ("adc_scan_binned",))
+        launched("recall_ceiling", counts, budget)
+        jr = jax_record("recall_ceiling_v3_3M.json")
+        for key, fl in RESEARCH_FLOORS["recall_ceiling"].items():
+            floor("recall_ceiling", key, res[key], fl, jr[key])
+        log(f"[15] recall_ceiling @10: pq {res['pq@10']:.4f}, pq_pv "
+            f"{res['pq_pv@10']:.4f}, ivfadc {res['ivfadc@10']:.4f}, "
+            f"ivfadc_pv {res['ivfadc_pv@10']:.4f} (JAX {jr['pq@10']}, "
+            f"{jr['pq_pv@10']}, {jr['ivfadc@10']}, {jr['ivfadc_pv@10']})")
+
+        # ---- the generator calibration, two configs at 307,200 rows
+        res, counts = run("synth_calibrate", "synth_calibrate",
+                          RESEARCH_ARGS["synth_calibrate"], tmp)
+        launched("synth_calibrate", counts, ("adc_scan",))
+        jr = {r["config"]: r for r in jax_record("synth_calib_307k.json")}
+        for r in res:
+            for key, fl in RESEARCH_FLOORS["synth_calibrate"][
+                    r["config"]].items():
+                floor(f"synth_calibrate {r['config']}", key, r[key], fl,
+                      jr.get(r["config"], {}).get(key))
+
+        # ---- the join's batch-size sweep at 3M
+        res, counts = run("join_nq_sweep", "join_nq_sweep",
+                          RESEARCH_ARGS["join_nq_sweep"], tmp)
+        launched("join_nq_sweep", counts, budget)
+        check(json.loads((tmp / "join_nq_sweep.json").read_text()) == res,
+              "join_nq_sweep's out file differs from its record")
+        jr = jax_record("join_nq_sweep_3M.json")
+        log(f"[15] join_nq_sweep prepare_join over {res['n']:,} rows "
+            f"{res['prepare_join_s']:.3f} s on {card}")
+        for nq, row in res["sweep"].items():
+            for key, fl in RESEARCH_FLOORS["join_nq_sweep"].items():
+                floor(f"join_nq_sweep nq={nq}", f"{key} recall@5",
+                      row[key]["recall5"], fl,
+                      jr["sweep"].get(nq, {}).get(key, {}).get("recall5"))
+            rising(f"join_nq_sweep nq={nq}",
+                   [row[k]["recall5"] for k in row if k.startswith("ivpq")])
+            log(f"[15] join_nq_sweep nq={nq} on {card}: " + ", ".join(
+                f"{k} {v['total_s'] * 1e3:.2f} ms ({v['qps']:.0f} q/s, "
+                f"recall@5 {v['recall5']:.4f})" for k, v in row.items()))
+
+        # ---- method 0 against method 2 at 3M
+        res, counts = run("join_method_diag", "join_method_diag",
+                          RESEARCH_ARGS["join_method_diag"], tmp)
+        launched("join_method_diag", counts, budget)
+        check(all(v > 0 for v in res.values()), f"join_method_diag: {res}")
+        log(f"[15] join_method_diag on {card}: {json.dumps(res)}")
+
+        # ---- 10,240,000 rows on the card, both PQ regimes
+        for regime in ("reference", "quality"):
+            label = f"scale_capacity_{regime}"
+            k4: dict = {}
+            hold = held_to_plain(
+                torch, kernels, ("adc_scan_binned",),
+                lambda luts, codes_t, **kw: kernels.adc_scan_binned_plain(
+                    luts, codes_t, block_n=kw.get("block_n", 2048),
+                    bins=kw.get("bins", kernels.BINNED_BINS)),
+                lambda luts, codes_t, **kw: (
+                    regime == "quality" and luts.shape[1] == 60
+                    and codes_t.shape[1] == SCALE_N), k4)
+            res, counts = run(label, "scale_capacity", RESEARCH_ARGS[label],
+                              tmp, hold)
+            launched(label, counts, ("adc_scan_binned",))
+            jr = jax_record(f"scale_10M_{regime}.json")
+            for key, fl in RESEARCH_FLOORS[label].items():
+                floor(label, f"{key} recall@10", res[key]["recall"], fl,
+                      jr[key]["recall"])
+            if regime == "quality":
+                check(k4.get("name") == "adc_scan_binned",
+                      "K4 at 10.24M and 60x16 was never held to its plain "
+                      "version")
+                out["k4_10M_err"] = k4["err"]
+                log(f"[15] K4 at {k4['shapes']} (10.24M rows, 60x16) equal "
+                    f"to its plain version: mins err {k4['err']}, ids equal"
+                    f" on {card}")
+            jax_bins = jr.get("bin_collision", {}).get(
+                "colliding_gt10_pairs", "not recorded")
+            log(f"[15] {label} on {card}: bin collisions "
+                f"{res['bin_collision']['colliding_gt10_pairs']} (JAX "
+                f"{jax_bins}); " + ", ".join(
+                    f"{k} {v['per_query_ms']:.5f} ms/query at B = "
+                    f"{v['batch']}, recall@10 {v['recall']:.4f}, @5 "
+                    f"{v['recall5']:.4f} (JAX {jr[k].get('recall')})"
+                    for k, v in res.items() if isinstance(v, dict)
+                    and "per_query_ms" in v))
+
+        # ---- the join over 10,240,000 rows
+        plan: dict = {}
+
+        def first_join_call(luts, codes_t, rowterm, tiles, **kw):
+            return codes_t.shape[1] >= SCALE_N
+
+        def plain_budget(luts, codes_t, rowterm, tiles, *, block_t, **kw):
+            b, p = tiles.shape
+            n_tiles = codes_t.shape[1] // block_t
+            real = int((tiles != n_tiles - 1).sum())
+            plan.update(queries=b, slots=p, block_t=block_t,
+                        n_tiles=n_tiles, real_slots=real,
+                        grouped=kernels._grouped_wins(
+                            b * p, n_tiles, kernels.GROUPED_ROWS_DEFAULT,
+                            luts.shape[1] * luts.shape[2] * 2))
+            return kernels.budget_adc_plain(luts, codes_t, rowterm, tiles,
+                                            block_t=block_t)
+
+        held: dict = {}
+        res, counts = run("scale_join_10M", "scale_join_10M",
+                          RESEARCH_ARGS["scale_join_10M"], tmp,
+                          held_to_plain(torch, kernels, budget, plain_budget,
+                                        first_join_call, held))
+        launched("scale_join_10M", counts, budget)
+        check(held.get("name") in budget, "the 10.24M join's budget kernel "
+              "was never held to its plain version")
+        out["join_10M_budget"] = {**held, **plan}
+        log(f"[15] the 10.24M join's first call: {held['name']} (the "
+            f"grouped rule says {plan['grouped']}) at B = {plan['queries']},"
+            f" P = {plan['slots']} slots of {plan['block_t']} rows over "
+            f"{plan['n_tiles']} tiles, {plan['real_slots']} slots off the "
+            f"inf tile (a share of "
+            f"{plan['real_slots'] / (plan['queries'] * plan['slots']):.3f}),"
+            f" equal to its plain version within {held['err']} on {card}")
+        jr = jax_record("scale_join_10M.json")
+        for key, fl in RESEARCH_FLOORS["scale_join_10M"].items():
+            floor("scale_join_10M", f"{key} recall@5", res[key]["recall5"],
+                  fl, jr[key]["recall5"])
+        alphas = [k for k in res if k.startswith("ivpq_join")]
+        rising("scale_join_10M", [res[k]["recall5"] for k in alphas])
+        log(f"[15] scale_join_10M on {card}: prepare_join over {res['n']:,}"
+            f" rows {res['prepare_join']['build_s']:.3f} s (JAX on its TPU "
+            f"{jr['prepare_join']['build_s']:.1f} s); exact bf16 "
+            f"{res['exact_bf16']['total_s']:.3f} s for {res['nq']:,} "
+            "queries; "
+            + ", ".join(f"{k} {res[k]['total_s']:.3f} s, recall@5 "
+                        f"{res[k]['recall5']:.4f}, scanned "
+                        f"{res[k]['scanned_rows_mean']:.0f} rows, "
+                        f"{res[k]['rounds']} round(s)" for k in alphas))
+    check(reports_digest() == before_reports,
+          "a research driver changed reports/")
+    return out
+
+
 def engine_phases(torch, args) -> dict:
     """Phases 1-13 on the phase-4 engine → the numbers the summary lines
     print, the launches of each path, and the head of the phase-4 store
@@ -2223,6 +2518,8 @@ def engine_phases(torch, args) -> dict:
     from postgres_word2vec_tpu_torch.models import ivfadc as ivfadc_mod
     from postgres_word2vec_tpu_torch.models import ivpq as ivpq_mod
     from postgres_word2vec_tpu_torch.models.exact import exact_top_k_precast
+    from postgres_word2vec_tpu_torch.evaluation.bounds import (
+        bound, smem_bytes_per_s)
     from postgres_word2vec_tpu_torch.ops import _build, kernels, lut
 
     # ---------------------------------------------------------------- 1
@@ -2682,7 +2979,7 @@ def engine_phases(torch, args) -> dict:
                 + int(torch.unique(tiles).numel()) * block_t * row_bytes)
 
     adc_ops = EVAL_Q * N * luts.shape[1]
-    shared_rate = smem_bytes_per_s(torch)
+    shared_rate = smem_bytes_per_s()
     dense_out = EVAL_Q * N * 4
     binned_out = EVAL_Q * -(-N // 2048) * 128 * 8
     fx_out = FUSED_B * fused._tiled.shape[0] // 8192 * 128 * 8
@@ -3283,6 +3580,11 @@ def main() -> int:
     res["report"]["drivers"] = drivers_phase(torch, *res["head"],
                                              path_launches, card)
     log(f"[14] drivers phase took {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------- 15: the research drivers
+    t0 = time.perf_counter()
+    res["report"]["research"] = research_phase(torch, path_launches, card)
+    log(f"[15] research drivers phase took {time.perf_counter() - t0:.1f} s")
 
     launches = {name: 0 for name in kernels.KERNELS}
     for counts in path_launches.values():

@@ -281,12 +281,12 @@ class ClientFleet:
 
     def window(self, port: int, n: int, k: int, seconds: float, *,
                path: str = "/knn", extra: str = "", batch: int = 1,
-               check: str | None = "self", profile_dir=None) -> dict:
+               check: str | None = "self", busy: bool = False) -> dict:
         """One measured window of every client against ``port`` →
         completed requests, errors, wall time, QPS and latency
-        percentiles. With ``profile_dir``, one second of the card's work
-        in the middle of the window is traced (device activity only) and
-        ``busy_share`` reports the share of it the card was busy."""
+        percentiles. With ``busy``, ``busy_share`` reports the share of one
+        second in the middle of the window that the card ran a kernel
+        (:func:`_busy_second`)."""
         self._windows += 1
         spec = dict(port=port, n=n, k=k, seconds=seconds, check=check,
                     path=path, extra=extra, batch=batch, seed=self._windows)
@@ -298,8 +298,7 @@ class ClientFleet:
             raise RuntimeError(f"the clients did not connect (exit codes of "
                                f"dead ones: {self._dead()[:4]})") from None
         t0 = time.perf_counter()
-        busy = (_profiled_second(profile_dir, seconds)
-                if profile_dir is not None else None)
+        busy_share = _busy_second(seconds) if busy else None
         lat: list[float] = []
         errors = 0
         err_kinds: dict = {}
@@ -325,28 +324,45 @@ class ClientFleet:
                "wall_s": wall, "qps": lat_ms.size / wall,
                "latency_ms": {"p50": pct(50), "p95": pct(95),
                               "p99": pct(99)}}
-        if busy is not None:
-            out["busy_share"] = busy
+        if busy_share is not None:
+            out["busy_share"] = busy_share
         if err_kinds:
             out["error_kinds"] = err_kinds
         return out
 
 
-def _profiled_second(profile_dir, seconds: float) -> float:
-    """Wait until a third of the window has passed, trace one second of the
-    card's work, and return the share of it the card was busy."""
-    from pathlib import Path
-
-    from postgres_word2vec_tpu_torch.utils import profiling
-
+def _busy_second(seconds: float) -> float:
+    """Wait until a third of the window has passed, then sample the card's
+    utilization for one second (NVML's share of time in which a kernel ran,
+    ``nvidia-smi --query-gpu=utilization.gpu`` every 100 ms) → its mean
+    share. Not a ``torch.profiler`` trace: stopping one while the servers
+    run crashed the process (a segmentation fault or a corrupted heap in
+    the profiler's stop, once server threads had come and gone)."""
     span = min(1.0, seconds / 3)
     time.sleep(seconds / 3)
-    t0 = time.perf_counter()
-    with profiling.device_trace(profile_dir, host=False):
+    proc = subprocess.Popen(
+        ["nvidia-smi", "-i", "0", "--query-gpu=utilization.gpu",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
         time.sleep(span)
-    return profiling.device_busy_share(
-        Path(profile_dir) / profiling.TRACE_FILE,
-        time.perf_counter() - t0)
+    finally:
+        proc.terminate()
+        try:
+            out, _ = proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+    return utilization_share(out)
+
+
+def utilization_share(samples: str) -> float:
+    """The mean of ``nvidia-smi``'s utilization samples (percent, one a
+    line) as a share."""
+    vals = [float(x) for x in samples.split()]
+    if not vals:
+        raise RuntimeError("nvidia-smi reported no utilization sample")
+    return sum(vals) / len(vals) / 100.0
 
 
 @contextlib.contextmanager

@@ -339,8 +339,12 @@ def _bin_min_int8(sums: torch.Tensor, scale: torch.Tensor, block_n: int,
     return mins.reshape(B, -1), ids.reshape(B, -1).to(torch.int32)
 
 
+#: Strided bins a tile of the binned scans K4 and K5 (one survivor each)
+BINNED_BINS = 128
+
+
 def adc_scan_binned_plain(luts: torch.Tensor, codes_t: torch.Tensor, *,
-                          block_n: int = 2048, bins: int = 128,
+                          block_n: int = 2048, bins: int = BINNED_BINS,
                           scale: torch.Tensor | None = None
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`adc_scan_binned` and
@@ -354,7 +358,7 @@ def adc_scan_binned_plain(luts: torch.Tensor, codes_t: torch.Tensor, *,
 
 
 def adc_scan_binned(luts: torch.Tensor, codes_t: torch.Tensor, *,
-                    block_n: int = 2048, bins: int = 128,
+                    block_n: int = 2048, bins: int = BINNED_BINS,
                     lut_dtype: str = "bf16"
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Binned ADC scan → (mins (B, n_tiles·bins) float32, global ids
@@ -372,8 +376,8 @@ def adc_scan_binned(luts: torch.Tensor, codes_t: torch.Tensor, *,
     if not _on_cuda(luts, codes_t):
         return adc_scan_binned_plain(luts, codes_t, block_n=block_n,
                                      bins=bins)
-    _require(bins == 128, f"the card's binned scan takes bins=128, got "
-             f"{bins}")
+    _require(bins == BINNED_BINS, f"the card's binned scan takes bins="
+             f"{BINNED_BINS}, got {bins}")
     _check_adc_inputs(luts, codes_t)
     B, m, k = luts.shape
     n = codes_t.shape[1]
@@ -388,7 +392,7 @@ def adc_scan_binned(luts: torch.Tensor, codes_t: torch.Tensor, *,
 
 def adc_scan_binned_int8(luts: torch.Tensor, scale: torch.Tensor,
                          codes_t: torch.Tensor, *, block_n: int = 2048,
-                         bins: int = 128
+                         bins: int = BINNED_BINS
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Binned ADC over int8 LUTs (K5) → (mins (B, n_tiles·bins) float32,
     global ids int32): per strided bin the min of the exact packed key
@@ -403,8 +407,8 @@ def adc_scan_binned_int8(luts: torch.Tensor, scale: torch.Tensor,
     if not _on_cuda(luts, scale, codes_t):
         return adc_scan_binned_plain(luts, codes_t, block_n=block_n,
                                      bins=bins, scale=scale)
-    _require(bins == 128, f"the card's binned scan takes bins=128, got "
-             f"{bins}")
+    _require(bins == BINNED_BINS, f"the card's binned scan takes bins="
+             f"{BINNED_BINS}, got {bins}")
     _check_adc_inputs(luts, codes_t, scale)
     B, m, k = luts.shape
     n = codes_t.shape[1]
@@ -470,7 +474,7 @@ def _top_k_survivors(mins: torch.Tensor, ids: torch.Tensor, k: int
 
 def adc_top_k_binned(luts: torch.Tensor, codes_t: torch.Tensor, k: int, *,
                      valid_n: int | None = None, block_n: int = 2048,
-                     bins: int = 128, lut_dtype: str = "bf16"
+                     bins: int = BINNED_BINS, lut_dtype: str = "bf16"
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Memory-lean exhaustive ADC top-k through the binned scan (K4, or K5
     for ``lut_dtype="int8"``) → (dists, int64 ids). Candidates are per-bin

@@ -185,6 +185,18 @@ def test_device_busy_share_merges_overlapping_spans(tmp_path):
     assert profiling.device_busy_share(path, 0.001) == pytest.approx(0.25)
 
 
+def test_serving_busy_share_averages_nvidia_smi_samples():
+    """A serving window's busy share: the mean of ``nvidia-smi``'s
+    utilization samples (percent, one a line) as a share; no sample is an
+    error, never a share of 0."""
+    from postgres_word2vec_tpu_torch.evaluation import serving_bench
+
+    assert serving_bench.utilization_share("87\n90\n 0\n") == (
+        pytest.approx(0.59))
+    with pytest.raises(RuntimeError, match="no utilization sample"):
+        serving_bench.utilization_share("\n")
+
+
 def test_configuration_and_logger_round_trip(tmp_path):
     cfg_path = tmp_path / "c.json"
     cfg_path.write_text(json.dumps({"a": 1, "b": [2, 3]}))

@@ -13,6 +13,7 @@ import postgres_word2vec_tpu_torch
 REPO = Path(__file__).resolve().parent.parent
 #: the command-line drivers, one for each script of the repository's
 #: index_creation/, evaluation/ and examples/ directories that is ported
+#: (the research drivers of evaluation/ with their shared module)
 CLI_MODULES = tuple(
     f"cli.{group}.{name}" for group, names in (
         ("index_creation", ("vec2database", "transform_vecs", "pq_index",
@@ -21,7 +22,10 @@ CLI_MODULES = tuple(
         ("evaluation", ("time_measurement", "time_precision_eval",
                         "step_wise_time_measurement", "confidence_eval",
                         "target_counts", "flexible_pq_eval",
-                        "vec_distr")),
+                        "vec_distr", "recall_ceiling", "synth_calibrate",
+                        "join_nq_sweep", "join_method_diag",
+                        "scale_capacity", "scale_join_10M", "roofline",
+                        "_research")),
         ("examples", ("quickstart", "serving", "multichip")))
     for name in names) + ("cli._common",)
 
@@ -41,7 +45,8 @@ def test_the_port_has_the_slice_modules():
                  "utils.native_io", "utils.migrate", "utils.config",
                  "utils.profiling", "models.builders", "server",
                  "server_async", "evaluation.synth", "evaluation.join_wall",
-                 "evaluation.benchutil", "evaluation.harness",
+                 "evaluation.benchutil", "evaluation.bounds",
+                 "evaluation.harness",
                  "evaluation.plots", "evaluation.html_report",
                  "evaluation.serving_bench", "parallel.sharding",
                  *CLI_MODULES):
