@@ -136,7 +136,19 @@ a user calls, and holds every hand-written kernel to its plain version:
     key numbers beside the JAX record's, held to floors; the memory
     allocated after each is under 1 GiB; K4 at 10.24M rows and 60×16 and
     the 10.24M join's budget kernel held to their plain versions on their
-    main-path launch; nothing under ``reports/`` changes.
+    main-path launch; nothing under ``reports/`` changes;
+16. the last entry points: ``graft_entry.entry()``'s forward step (one
+    launch of K2, held to the same forward over the index on the CPU),
+    ``graft_entry.dryrun_multichip`` on 4 and 8 entries of the one card
+    (the shard-and-merge overhead, not multi-GPU scaling), and the three
+    kernel sweeps at their JAX records' defaults: ``budget_kernel_sweep``
+    (K6 against K7 at rows 8–64 and K8 at rows 16 and 32, each held to K6),
+    ``adc_kernel_probe --sweep`` (K2 against K4 at B 64 and 256 in both
+    regimes, then K4's block_n × bins × queries per block, its first point
+    held to the plain version) and ``exact_block_sweep`` (K1 at block_n
+    2048–16,384, the top-10 overlap of each with the first); each step's
+    wall time, launches and peak memory; nothing under ``reports/``
+    changes.
 
 Usage: ``python3 chip_smoke.py [--profile OUT.json]`` from the repository
 root, on a machine with one CUDA GPU. It fails (non-zero exit, no result
@@ -279,6 +291,28 @@ RESEARCH_FLOORS = {
 }
 # recall may fall by at most this much from one alpha to the next larger
 ALPHA_SLACK = 0.005
+# the kernel sweeps phase: each sweep's arguments (its JAX record's
+# defaults; the ADC probe with its block-shape sweep), and the least
+# top-10 overlap of every K1 tile size with the first
+# (reports/exact_block_sweep.json: 1.0, 1.0, 0.9999)
+SWEEP_ARGS = {"budget_kernel_sweep": [], "adc_kernel_probe": ["--sweep"],
+              "exact_block_sweep": []}
+EXACT_OVERLAP_FLOOR = 0.999
+# a sweep run in a process of its own: ``python -c SWEEP_CHILD <sweep>
+# <args>`` runs its ``main`` and prints, as the last line of stderr, its
+# record, its launches and its peak memory
+SWEEP_CHILD = """
+import importlib, json, sys
+import torch
+from postgres_word2vec_tpu_torch.ops import kernels
+res = importlib.import_module("postgres_word2vec_tpu_torch.cli.evaluation."
+                              + sys.argv[1]).main(sys.argv[2:])
+torch.cuda.synchronize()
+print(json.dumps({"record": res, "peak_gib":
+                  torch.cuda.max_memory_allocated() / 2**30, "counts":
+                  {k: v for k, v in kernels.launch_counts().items() if v}}),
+      file=sys.stderr)
+"""
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -2233,12 +2267,12 @@ def drivers_phase(torch, head_words, head_vecs, path_launches: dict,
 # --------------------------------------------- 15: the research drivers
 @contextlib.contextmanager
 def held_to_plain(torch, kernels, names: tuple[str, ...], plain, when,
-                  found: dict):
+                  found: dict, tol: dict = TOL):
     """While the block runs, the first launch of any of the kernels
-    ``names`` whose arguments satisfy ``when`` is held to ``plain`` on the
-    same arguments, at ``TOL``: its error and shapes are put in ``found``.
-    The main path's own launch is the one compared; the plain version
-    launches no kernel."""
+    ``names`` (functions of the module ``kernels``) whose arguments satisfy
+    ``when`` is held to ``plain`` on the same arguments, at ``tol``: its
+    error and shapes are put in ``found``. The main path's own launch is
+    the one compared; the plain version launches no kernel."""
     saved = {name: getattr(kernels, name) for name in names}
 
     def wrap(name, fn):
@@ -2248,7 +2282,7 @@ def held_to_plain(torch, kernels, names: tuple[str, ...], plain, when,
                 want = plain(*args, **kw)
                 if isinstance(out, tuple):
                     err = float((out[0] - want[0]).abs().max())
-                    check(torch.equal(out[1], want[1]) and err <= TOL[name],
+                    check(torch.equal(out[1], want[1]) and err <= tol[name],
                           f"{name}: ids or mins differ from the plain "
                           f"version (mins err {err})")
                 else:
@@ -2505,6 +2539,225 @@ def research_phase(torch, path_launches: dict, card: str) -> dict:
                         f"{res[k]['rounds']} round(s)" for k in alphas))
     check(reports_digest() == before_reports,
           "a research driver changed reports/")
+    return out
+
+
+# ------------------------------- 16: the graft entry and the kernel sweeps
+def sweeps_phase(torch, path_launches: dict, card: str) -> dict:
+    """Phase 16: the last entry points, on the card.
+
+    1. ``graft_entry.entry()``: the forward step's shapes, one K2 launch,
+       and its answer held to the same forward over the index moved to
+       the CPU (the plain path), ids up to ties, values within 1e-5;
+    2. ``graft_entry.dryrun_multichip`` on 4 and 8 entries of the one card
+       (the shard-and-merge overhead, not multi-GPU scaling);
+    3. the three kernel sweeps at their JAX records' defaults
+       (SWEEP_ARGS), every file they write in a temporary directory:
+       ``budget_kernel_sweep`` (every ``_match`` true; in a process of its
+       own, SWEEP_CHILD, since it reads ``torch.profiler`` traces),
+       ``adc_kernel_probe --sweep`` (its first sweep point, K4 at forced
+       queries per block, held to ``adc_scan_binned_plain`` by
+       ``held_to_plain``, bit for bit) and
+       ``exact_block_sweep`` (``overlap_vs_first`` at least
+       EXACT_OVERLAP_FLOOR at every size that ran, block_n 8192 among
+       them).
+
+    Each step's launches are counted from 0 and kept in ``path_launches``
+    under ``sweeps_<name>``, with its wall time and peak memory; less than
+    1 GiB is left allocated after each; nothing under ``reports/``
+    changes. The JAX records of ``reports/`` are printed only as a TPU's
+    history."""
+    import gc
+    import importlib
+    import io
+    import tempfile
+    from pathlib import Path
+
+    from postgres_word2vec_tpu_torch import graft_entry
+    from postgres_word2vec_tpu_torch.cli.evaluation import adc_kernel_probe
+    from postgres_word2vec_tpu_torch.models.ivpq import IVPQIndex
+    from postgres_word2vec_tpu_torch.ops import kernels
+
+    before_reports = reports_digest()
+    out = {"wall_s": {}, "launches": {}, "peak_gib": {}, "records": {}}
+
+    @contextlib.contextmanager
+    def step(label):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        got = {"stdout": io.StringIO(), "stderr": io.StringIO()}
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(got["stdout"]), \
+                contextlib.redirect_stderr(got["stderr"]):
+            yield got
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if "child" in got:      # the step ran in a process of its own
+            counts, peak = got["child"]["counts"], got["child"]["peak_gib"]
+        path_launches[f"sweeps_{label}"] = counts
+        out["wall_s"][label], out["launches"][label] = took, counts
+        out["peak_gib"][label] = peak
+        got.update(counts=counts, took=took)
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() / 2**30
+        check(left < 1.0, f"{label}: {left:.2f} GiB still allocated after "
+              "it returned")
+        log(f"[16] {label}: {took:.1f} s, launches {counts}, peak "
+            f"{peak:.2f} GiB, {left:.2f} GiB left after it on {card}")
+
+    def relog(label, text):
+        for line in text.getvalue().splitlines():
+            if line.strip():
+                log(f"[16] {label}: {line}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # ---- the forward step on the card, held to the plain path
+        with step("graft_entry") as got:
+            fn, args = graft_entry.entry()
+            vals, ids, retrieved = fn(*args)
+        check(got["counts"] == {"adc_scan": 1},
+              f"entry()'s forward launched {got['counts']}, not K2 once")
+        check(vals.is_cuda and tuple(vals.shape) == (16, 5)
+              and tuple(ids.shape) == (16, 5)
+              and tuple(retrieved.shape) == (16,),
+              f"entry()'s shapes {vals.shape} {ids.shape} {retrieved.shape}")
+        fn.index.save(tmp / "tiny_ivpq.npz")
+        fn_cpu = graft_entry.forward_step(
+            IVPQIndex.load(tmp / "tiny_ivpq.npz", device="cpu"),
+            fn.vecs.cpu())
+        pv, pi, pr = fn_cpu(args[0].cpu(), args[1])
+        same_top_k(torch, vals.cpu(), ids.cpu(), pv, pi, 1e-5,
+                   "entry()'s forward on the card against the plain path")
+        check(torch.equal(retrieved.cpu(), pr),
+              "entry()'s retrieved counts differ from the plain path's")
+        out["graft_entry_err"] = float((vals.cpu() - pv).abs().max())
+        log(f"[16] entry() forward on {card}: shapes (16, 5), (16, 5), "
+            f"(16,); K2 once; values within {out['graft_entry_err']:.3g} "
+            f"of the plain path, ids equal up to ties, retrieved equal")
+        del fn, args, vals, ids, retrieved, fn_cpu
+
+        # ---- the mesh dry run on entries of the one card
+        for n in (4, 8):
+            with step(f"dryrun_multichip_{n}") as got:
+                graft_entry.dryrun_multichip(n)
+            text = got["stdout"].getvalue()
+            check("dryrun_multichip ok" in text
+                  and "not multi-GPU scaling" in text,
+                  f"dryrun_multichip({n}): {text}")
+            log(f"[16] dryrun_multichip({n}) on {n} entries of the one card"
+                f" (the shard-and-merge overhead, not multi-GPU scaling): "
+                f"{text.splitlines()[0][len('dryrun_multichip ok: '):]}")
+
+        # ---- the kernel sweeps at their JAX records' defaults
+        def sweep(label, args, hold=None, own_process=False):
+            main = importlib.import_module(
+                f"postgres_word2vec_tpu_torch.cli.evaluation.{label}").main
+            outs = ([] if label == "adc_kernel_probe"
+                    else ["--out", str(tmp / f"{label}.json")])
+            with step(label) as got, (hold or contextlib.nullcontext()):
+                if own_process:
+                    proc = subprocess.run(
+                        [sys.executable, "-c", SWEEP_CHILD, label, *args,
+                         *outs], cwd=REPO, capture_output=True, text=True,
+                        timeout=600)
+                    check(proc.returncode == 0, f"{label} exited "
+                          f"{proc.returncode}: {proc.stderr[-3000:]}")
+                    *lines, last = proc.stderr.strip().splitlines()
+                    got["stderr"].write("\n".join(lines))
+                    got["child"] = json.loads(last)
+                    res = got["child"]["record"]
+                else:
+                    res = main([*args, *outs])
+            relog(label, got["stderr"])
+            out["records"][label] = res
+            return res, got["counts"]
+
+        # in a process of its own: its programs are read from a
+        # torch.profiler trace, and in this process, after the serving
+        # phase's threads, the profiler has recorded no kernel in three
+        # traces in a row (and its stop once crashed phase 8)
+        res, counts = sweep("budget_kernel_sweep",
+                            SWEEP_ARGS["budget_kernel_sweep"],
+                            own_process=True)
+        check(json.loads((tmp / "budget_kernel_sweep.json").read_text())
+              == res, "budget_kernel_sweep's out file differs from its "
+              "record")
+        matches = {k: v for k, v in res.items() if k.endswith("_match")}
+        check(len(matches) == 6 and all(matches.values()),
+              f"budget_kernel_sweep: {matches}")
+        check({"budget_adc", "budget_adc_grouped",
+               "budget_adc_grouped_int8"} <= counts.keys(),
+              f"budget_kernel_sweep launched {counts}")
+        log(f"[16] budget_kernel_sweep on {card}: " + ", ".join(
+            f"{k} {v * 1e3:.4f} ms" for k, v in res.items()
+            if k.endswith("_s")) + "; programs " + ", ".join(
+            f"{k[:-len('_programs')]} {v}" for k, v in res.items()
+            if k.endswith("_programs")) + f"; mean_run {res['mean_run']}")
+        jr = json.loads(Path(REPO, "reports",
+                             "budget_kernel_sweep.json").read_text())
+        check(res["mean_run"] == jr["mean_run"],
+              f"budget_kernel_sweep draws: mean_run {res['mean_run']} is "
+              f"not the JAX record's {jr['mean_run']}")
+        log("[16] TPU record (history), reports/budget_kernel_sweep.json: "
+            + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in jr.items()
+                        if k.endswith("_s")))
+
+        # the sweep's first point (block_n 2048, 16 queries a block, its
+        # loop order) held to the plain version, bit for bit
+        first: dict = {}
+        res, counts = sweep(
+            "adc_kernel_probe", SWEEP_ARGS["adc_kernel_probe"],
+            held_to_plain(
+                torch, adc_kernel_probe, ("binned_at",),
+                lambda luts, codes_t, *, block_n, bins, qb:
+                kernels.adc_scan_binned_plain(luts, codes_t,
+                                              block_n=block_n, bins=bins),
+                lambda *args, **kw: True, first,
+                tol={"binned_at": TOL["adc_scan_binned"]}))
+        check(first.get("name") == "binned_at" and first["err"] == 0.0,
+              f"the probe's first sweep point was not held: {first}")
+        points = res["sweep_m12k256_B256"]
+        check(all(isinstance(v, float) for k, v in points.items()
+                  if k.endswith("bins128")) and len(points) == 18,
+              f"adc_kernel_probe --sweep: {points}")
+        check({"adc_scan", "adc_scan_binned"} <= counts.keys(),
+              f"adc_kernel_probe launched {counts}")
+        log(f"[16] adc_kernel_probe on {card}: the first sweep point "
+            f"(block_n 2048, qb 16, bins 128, {first['shapes']}) equal to "
+            f"adc_scan_binned_plain; "
+            + json.dumps(res))
+
+        res, counts = sweep("exact_block_sweep",
+                            SWEEP_ARGS["exact_block_sweep"])
+        ran = {k: v for k, v in res.items()
+               if isinstance(v, dict) and "scan_s" in v}
+        check("bn8192" in ran, f"exact_block_sweep: block_n 8192 did not "
+              f"run: {res.get('bn8192')}")
+        check(all(v["overlap_vs_first"] >= EXACT_OVERLAP_FLOOR
+                  for v in ran.values()),
+              f"exact_block_sweep overlaps: {ran}")
+        check(counts.get("fused_exact_scan", 0) > 0,
+              f"exact_block_sweep launched {counts}")
+        log(f"[16] exact_block_sweep on {card}: " + ", ".join(
+            f"{k} {v['scan_s'] * 1e3:.3f} ms a B = {res['b']} scan, "
+            f"{v['eff_gbps']:.1f} GB/s of table, overlap "
+            f"{v['overlap_vs_first']}" for k, v in ran.items())
+            + "".join(f"; {k} refused: {v['error']}"
+                      for k, v in res.items()
+                      if isinstance(v, dict) and v.get("failed")))
+        jr = json.loads(Path(REPO, "reports",
+                             "exact_block_sweep.json").read_text())
+        log("[16] TPU record (history), reports/exact_block_sweep.json: "
+            + ", ".join(f"{k} {v['scan_s'] * 1e3:.3f} ms"
+                        for k, v in jr.items()
+                        if isinstance(v, dict) and "scan_s" in v))
+    check(reports_digest() == before_reports, "a sweep changed reports/")
     return out
 
 
@@ -3585,6 +3838,12 @@ def main() -> int:
     t0 = time.perf_counter()
     res["report"]["research"] = research_phase(torch, path_launches, card)
     log(f"[15] research drivers phase took {time.perf_counter() - t0:.1f} s")
+
+    # ---------------------- 16: the graft entry and the kernel sweeps
+    t0 = time.perf_counter()
+    res["report"]["sweeps"] = sweeps_phase(torch, path_launches, card)
+    log(f"[16] graft entry and kernel sweeps phase took "
+        f"{time.perf_counter() - t0:.1f} s")
 
     launches = {name: 0 for name in kernels.KERNELS}
     for counts in path_launches.values():

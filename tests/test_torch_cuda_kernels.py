@@ -1621,3 +1621,64 @@ def test_sharded_engine_on_the_card_matches_the_cpu_mesh(engine_dirs):
     got = gpu.knn_in_ivpq_batch(words, 5, targets)
     want = cpu.knn_in_ivpq_batch(words, 5, targets)
     assert [(a, w) for a, w, _ in got] == [(a, w) for a, w, _ in want]
+
+
+# -------------------------------------------- the kernel sweeps, graft entry
+
+@pytest.mark.parametrize("block_n,qb", [(2048, 16), (2048, 4), (4096, 8),
+                                        (8192, 4)])
+def test_probe_sweep_point_equals_plain(block_n, qb):
+    """The ADC probe's ``--sweep`` launch (K4 at forced queries per block)
+    equals the plain binned scan, mins and ids, and counts as one K4."""
+    from postgres_word2vec_tpu_torch.cli.evaluation import adc_kernel_probe
+
+    g = torch.Generator("cuda").manual_seed(5)
+    luts = torch.rand(37, 12, 256, generator=g, device="cuda")
+    codes_t = torch.randint(0, 256, (12, 3 * 8192), generator=g,
+                            device="cuda", dtype=torch.uint8)
+    kernels.reset_launch_counts()
+    mins, ids = adc_kernel_probe.binned_at(luts, codes_t, block_n=block_n,
+                                           bins=128, qb=qb)
+    assert kernels.launch_counts()["adc_scan_binned"] == 1
+    want = kernels.adc_scan_binned_plain(luts, codes_t, block_n=block_n)
+    assert torch.equal(mins, want[0]) and torch.equal(ids, want[1])
+
+
+def test_probe_sweep_refuses_bins_256_before_a_launch():
+    from postgres_word2vec_tpu_torch.cli.evaluation import adc_kernel_probe
+
+    luts = torch.rand(4, 12, 256, device="cuda")
+    codes_t = torch.zeros(12, 8192, dtype=torch.uint8, device="cuda")
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="bins=128"):
+        adc_kernel_probe.binned_at(luts, codes_t, block_n=4096, bins=256,
+                                   qb=16)
+    assert kernels.launch_counts()["adc_scan_binned"] == 0
+
+
+def test_budget_sweep_reads_the_launch_grids():
+    """``launch_blocks``: K7 runs a block per group, ⌈B·P/rows⌉ + the
+    table's tiles; K6 at least one block per query."""
+    from postgres_word2vec_tpu_torch.cli.evaluation import (
+        budget_kernel_sweep as bks)
+
+    luts, codes, rowterm, tiles = (torch.from_numpy(a).cuda() for a in
+                                   bks.draws(64, 8, 128, 20, 30, 32, 1.1))
+    grouped = bks.launch_blocks(lambda: kernels.budget_adc_grouped(
+        luts, codes, rowterm, tiles, block_t=128, rows=16),
+        "budget_adc_grouped_kernel")
+    assert grouped == -(-64 * 8 // 16) + 21
+    per_query = bks.launch_blocks(lambda: kernels.budget_adc(
+        luts, codes, rowterm, tiles, block_t=128), "budget_adc_kernel")
+    assert 64 <= per_query <= 64 * 8
+
+
+def test_graft_forward_on_the_card_launches_k2_once():
+    from postgres_word2vec_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry()
+    kernels.reset_launch_counts()
+    vals, ids, retrieved = fn(*args)
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == {
+        "adc_scan": 1}
+    assert vals.is_cuda and vals.shape == (16, 5) and retrieved.shape == (16,)

@@ -12,8 +12,10 @@ import postgres_word2vec_tpu_torch
 
 REPO = Path(__file__).resolve().parent.parent
 #: the command-line drivers, one for each script of the repository's
-#: index_creation/, evaluation/ and examples/ directories that is ported
-#: (the research drivers of evaluation/ with their shared module)
+#: index_creation/, evaluation/ and examples/ directories (the research
+#: drivers and kernel sweeps of evaluation/ with their shared module): every
+#: script but evaluation/gen_readme_table.py, which renders bench.py's JSON
+#: and waits for bench.py's port
 CLI_MODULES = tuple(
     f"cli.{group}.{name}" for group, names in (
         ("index_creation", ("vec2database", "transform_vecs", "pq_index",
@@ -25,7 +27,8 @@ CLI_MODULES = tuple(
                         "vec_distr", "recall_ceiling", "synth_calibrate",
                         "join_nq_sweep", "join_method_diag",
                         "scale_capacity", "scale_join_10M", "roofline",
-                        "_research")),
+                        "budget_kernel_sweep", "adc_kernel_probe",
+                        "exact_block_sweep", "_research")),
         ("examples", ("quickstart", "serving", "multichip")))
     for name in names) + ("cli._common",)
 
@@ -49,7 +52,7 @@ def test_the_port_has_the_slice_modules():
                  "evaluation.harness",
                  "evaluation.plots", "evaluation.html_report",
                  "evaluation.serving_bench", "parallel.sharding",
-                 *CLI_MODULES):
+                 "graft_entry", *CLI_MODULES):
         assert f"postgres_word2vec_tpu_torch.{name}" in mods, name
 
 
