@@ -148,14 +148,25 @@ a user calls, and holds every hand-written kernel to its plain version:
     held to the plain version) and ``exact_block_sweep`` (K1 at block_n
     2048–16,384, the top-10 overlap of each with the first); each step's
     wall time, launches and peak memory; nothing under ``reports/``
-    changes.
+    changes;
+17. last, the benchmark driver: ``cli.bench`` (the port of ``bench.py``)
+    at full scale, 3,072,000 × 300, in a process of its own (it reads a
+    ``torch.profiler`` trace, BENCH_CHILD), its record in a temporary
+    directory: every row that ``bench.py`` emits at full scale (the
+    committed ``BENCH_LOCAL_latest.json``'s) present, each logged with
+    its time, recall@5 and @10 and its launches, the one line under
+    2,048 B, the insert probe true, recall@5 above ``BENCH_FLOORS``, each
+    of K1–K8 launched and held to its plain version on its first launch,
+    the launches of each section, the table that the port's
+    ``gen_readme_table`` renders from the record; nothing under
+    ``reports/`` nor ``BENCH_LOCAL_latest.json`` changes.
 
-Usage: ``python3 chip_smoke.py [--profile OUT.json]`` from the repository
-root, on a machine with one CUDA GPU. It fails (non-zero exit, no result
-line) without CUDA, without the package beside it, or when any check
-fails. The line before
-the last is a JSON object of per-kernel numbers; the last line is
-``{"ok": true, "device": {...}}``.
+Usage: ``python3 chip_smoke.py [--profile OUT.json] [--bench-out
+BENCH.json]`` from the repository root, on a machine with one CUDA GPU;
+``--bench-out`` also writes phase 17's record there. It fails (non-zero
+exit, no result line) without CUDA, without the package beside it, or
+when any check fails. The line before the last is a JSON object of
+per-kernel numbers; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -309,6 +320,54 @@ res = importlib.import_module("postgres_word2vec_tpu_torch.cli.evaluation."
                               + sys.argv[1]).main(sys.argv[2:])
 torch.cuda.synchronize()
 print(json.dumps({"record": res, "peak_gib":
+                  torch.cuda.max_memory_allocated() / 2**30, "counts":
+                  {k: v for k, v in kernels.launch_counts().items() if v}}),
+      file=sys.stderr)
+"""
+# the bench phase (17): recall@5 floors on bench.py's rows, set below the
+# JAX r05 columns (BENCH_r05.json: PQ 0.446, PQ + PV20 0.916, OPQ 0.574,
+# IVFADC 0.538, IVFADC + PV 0.936, best quality 0.998, the 3M join at
+# alpha 2400 0.912) by margins like FLOORS'; the port's rows are drawn on
+# the card, so they differ from the record's
+BENCH_FLOORS = {"pq_scan": 0.38, "pq_pv_20": 0.85, "pq_opq_scan": 0.50,
+                "ivfadc_batch_w3": 0.45, "ivfadc_pv": 0.85,
+                "pq4bit_opq_pv_20": 0.95, "ivpq_join_pv_a2400_3M": 0.85}
+# the kernels of bench.py's main path, each held to its plain version
+BENCH_KERNELS = ("fused_exact_scan", "adc_scan", "adc_scan_int8",
+                 "adc_scan_binned", "adc_scan_binned_int8", "budget_adc",
+                 "budget_adc_grouped", "budget_adc_grouped_int8")
+# the bench in a process of its own: ``python -c BENCH_CHILD <bench args>``
+# runs ``cli.bench.main`` with each of BENCH_KERNELS held to its plain
+# version on its first launch (``bench_holds``) and the launches of each
+# section counted, and prints, as the last line of stderr, the holds, the
+# launches of the run and of each section and its peak memory
+BENCH_CHILD = """
+import json, sys
+import torch
+import chip_smoke as cs
+from postgres_word2vec_tpu_torch.cli import bench
+from postgres_word2vec_tpu_torch.ops import kernels
+sections = {}
+def counted(name, fn):
+    def run(*args, **kw):
+        before = kernels.launch_counts()
+        try:
+            return fn(*args, **kw)
+        finally:
+            sections[name] = {k: v - before[k] for k, v in
+                              kernels.launch_counts().items() if v > before[k]}
+    return run
+for name in ("time_exact", "ground_truth", "exact_section", "pq256_section",
+             "opq_section", "pq4bit_section", "pq4bit_opq_section",
+             "pq1024_section", "ivfadc_section", "ivfadc4bit_section",
+             "join_section", "large_target_section", "insert_section"):
+    setattr(bench, name, counted(name, getattr(bench, name)))
+held = {}
+kernels.reset_launch_counts()
+with cs.bench_holds(torch, kernels, held):
+    bench.main(sys.argv[1:])
+torch.cuda.synchronize()
+print(json.dumps({"held": held, "sections": sections, "peak_gib":
                   torch.cuda.max_memory_allocated() / 2**30, "counts":
                   {k: v for k, v in kernels.launch_counts().items() if v}}),
       file=sys.stderr)
@@ -2761,6 +2820,197 @@ def sweeps_phase(torch, path_launches: dict, card: str) -> dict:
     return out
 
 
+# ----------------------------------------------- 17: the benchmark driver
+@contextlib.contextmanager
+def bench_holds(torch, kernels, found: dict):
+    """While the block runs, the first launch of each of BENCH_KERNELS
+    (functions of the module ``kernels``) is held to its plain version on
+    the same arguments: ``found[name]`` gets its error and shapes. A call
+    that does not launch the kernel itself (an int8 request, which runs
+    the int8 twin) is passed by. Dense outputs are held as
+    ``budget_err`` holds them, the binned scans' ids for equality and
+    their mins at TOL, K1 to its binned contract (``verify_binned``, as
+    phase 3 holds it). The plain versions launch no kernel."""
+    def float_luts(args, kw):
+        return kw.get("lut_dtype", "bf16") != "int8"
+
+    def always(args, kw):
+        return True
+
+    def drop(plain, *names):
+        return lambda *args, **kw: plain(*args, **{
+            k: v for k, v in kw.items() if k not in names})
+
+    def scaled(plain):
+        return lambda luts, scale, *rest, rows=None, **kw: plain(
+            luts, *rest, scale=scale, **kw)
+
+    def fused_err(name, out, want, args, kw):
+        q, table, norms = args[:3]
+        valid = int(torch.isfinite(norms).sum())
+
+        def score_at(i):
+            res = torch.empty(i.shape, device=i.device)
+            for s in range(0, i.shape[0], 16):
+                rows = table[i[s:s + 16]].float()
+                res[s:s + 16] = (norms[i[s:s + 16]] - 2.0 * torch.einsum(
+                    "bwd,bd->bw", rows, q[s:s + 16].float()))
+            return res
+
+        return kernels.verify_binned(
+            out[0], out[1], want[0], score_at,
+            block_n=kw.get("block_n", 8192), bins=kw.get("bins", 128),
+            valid_n=valid, atol=TOL[name])
+
+    def binned_err(name, out, want, args, kw):
+        check(torch.equal(out[1], want[1]),
+              f"{name} bench: ids differ from the plain version")
+        return budget_err(torch, out[0], want[0], name, "bench")
+
+    def dense_err(name, out, want, args, kw):
+        return budget_err(torch, out, want, name, "bench")
+
+    holds = {
+        "fused_exact_scan": (always, kernels.fused_exact_scan_plain,
+                             fused_err),
+        "adc_scan": (float_luts, drop(kernels.adc_scan_plain, "lut_dtype"),
+                     dense_err),
+        "adc_scan_int8": (always, scaled(kernels.adc_scan_plain), dense_err),
+        "adc_scan_binned": (float_luts, drop(kernels.adc_scan_binned_plain,
+                                             "lut_dtype"), binned_err),
+        "adc_scan_binned_int8": (always,
+                                 scaled(kernels.adc_scan_binned_plain),
+                                 binned_err),
+        "budget_adc": (always, kernels.budget_adc_plain, dense_err),
+        "budget_adc_grouped": (float_luts, drop(kernels.budget_adc_plain,
+                                                "rows", "lut_dtype"),
+                               dense_err),
+        "budget_adc_grouped_int8": (always, scaled(kernels.budget_adc_plain),
+                                    dense_err),
+    }
+    saved = {name: getattr(kernels, name) for name in holds}
+
+    def wrap(name, fn, when, plain, err_of):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            if name not in found and when(args, kw):
+                want = plain(*args, **kw)
+                found[name] = {"err": err_of(name, out, want, args, kw),
+                               "shapes": [list(a.shape) for a in args
+                                          if hasattr(a, "shape")]}
+            return out
+        return call
+
+    for name, (when, plain, err_of) in holds.items():
+        setattr(kernels, name, wrap(name, saved[name], when, plain, err_of))
+    try:
+        yield found
+    finally:
+        for name, fn in saved.items():
+            setattr(kernels, name, fn)
+
+
+def bench_phase(torch, path_launches: dict, card: str,
+                bench_out: str | None) -> dict:
+    """Phase 17: ``cli.bench`` at full scale in a process of its own
+    (BENCH_CHILD; it reads a ``torch.profiler`` trace, and after the
+    serving phase this process's traces come back empty), its record in a
+    temporary directory.
+
+    Fails on a non-zero exit, a row of the committed JAX record
+    (``BENCH_LOCAL_latest.json``, a full-scale run of ``bench.py``)
+    missing or one added, a one line that does not parse or is 2,048 B or
+    longer, ``insert_batch.probe_ok`` false, a recall@5 under
+    BENCH_FLOORS, a kernel of BENCH_KERNELS not launched or not held to its
+    plain version, or a change under ``reports/`` or to the JAX record.
+    Logs each row with its time, recalls and launches, the launches of
+    each section, the one line, the table the port's ``gen_readme_table``
+    renders from the record, and the JAX r05 line as a TPU's history; the
+    run's launches go into ``path_launches["bench"]``."""
+    import tempfile
+    from pathlib import Path
+
+    from postgres_word2vec_tpu_torch.cli.evaluation import gen_readme_table
+
+    jax_record = Path(REPO, "BENCH_LOCAL_latest.json")
+
+    def digest():
+        import hashlib
+        return {**reports_digest(), str(jax_record): hashlib.sha256(
+            jax_record.read_bytes()).hexdigest()}
+
+    before = digest()
+    want_rows = set(json.loads(jax_record.read_text())["configs"])
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp, "bench.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", BENCH_CHILD, "--out",
+                               str(out)], cwd=REPO, capture_output=True,
+                              text=True, timeout=900)
+        took = time.perf_counter() - t0
+        for line in proc.stderr.strip().splitlines()[:-1]:
+            if line.strip() and "SyncActivityProfilerHandler" not in line:
+                log(f"[17] {line}")
+        check(proc.returncode == 0, f"cli.bench exited {proc.returncode}: "
+              f"{proc.stderr[-3000:]}")
+        child = json.loads(proc.stderr.strip().splitlines()[-1])
+        text = proc.stdout.strip().splitlines()[-1]
+        check(len(text) < 2048, f"the bench line is {len(text)} B")
+        line = json.loads(text)
+        detail = json.loads(out.read_text())
+        if bench_out:
+            Path(bench_out).parent.mkdir(parents=True, exist_ok=True)
+            Path(bench_out).write_text(out.read_text())
+    rows = detail["configs"]
+    check(set(rows) == want_rows,
+          f"bench rows: missing {sorted(want_rows - set(rows))}, added "
+          f"{sorted(set(rows) - want_rows)}")
+    check(detail["n_vectors"] == N and detail["device"] == card,
+          f"bench record: n_vectors {detail['n_vectors']}, device "
+          f"{detail['device']!r}")
+    check(rows["insert_batch"]["probe_ok"] is True,
+          "insert_batch: a just-inserted phrase is not its own 1-NN")
+    for name, floor in BENCH_FLOORS.items():
+        check(rows[name]["recall5"] >= floor,
+              f"bench {name} recall@5 {rows[name]['recall5']:.4f} < floor "
+              f"{floor}")
+    counts = child["counts"]
+    missing = [k for k in BENCH_KERNELS if not counts.get(k)]
+    check(not missing, f"bench launched none of {missing}: {counts}")
+    unheld = [k for k in BENCH_KERNELS if k not in child["held"]]
+    check(not unheld, f"bench: {unheld} not held to the plain version")
+    path_launches["bench"] = counts
+
+    for name, r in rows.items():
+        if "per_query_ms" in r:
+            t = f"{r['per_query_ms']:.5f} ms/query"
+            t += f" (batch {r['batch']})" if "batch" in r else ""
+        elif "qps" in r:
+            t = f"{r['qps']:.0f} QPS ({r['total_s']:.4f} s)"
+        else:
+            t = json.dumps({k: v for k, v in r.items() if k != "note"})
+        rec = (f", recall@5 {r['recall5']:.4f}, @10 {r['recall']:.4f}"
+               if "recall5" in r else "")
+        log(f"[17] {name} on {card}: {t}{rec}, launches "
+            f"{detail['launches'].get(name, {})}")
+    for name, v in child["sections"].items():
+        log(f"[17] section {name} launched {v}")
+    for name, h in child["held"].items():
+        log(f"[17] {name} held to its plain version on its first bench "
+            f"launch: err {h['err']}, shapes {h['shapes']}")
+    log(f"[17] bench line on {card}: {text}")
+    r05 = json.loads(Path(REPO, "BENCH_r05.json").read_text())["parsed"]
+    log(f"[17] TPU record (history), BENCH_r05.json: {json.dumps(r05)}")
+    for row_text in gen_readme_table.render(detail, "bench.json"):
+        log(f"[17] table: {row_text}")
+    log(f"[17] bench took {took:.1f} s in its own process, peak "
+        f"{child['peak_gib']:.2f} GiB, launches {counts}")
+    check(digest() == before, "the bench changed reports/ or "
+          "BENCH_LOCAL_latest.json")
+    return {"wall_s": took, "launches": counts, "held": child["held"],
+            "sections": child["sections"], "line": line}
+
+
 def engine_phases(torch, args) -> dict:
     """Phases 1-13 on the phase-4 engine → the numbers the summary lines
     print, the launches of each path, and the head of the phase-4 store
@@ -3807,6 +4057,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="OUT.json",
                     help="also profile each path and write the report here")
+    ap.add_argument("--bench-out", metavar="BENCH.json",
+                    help="also write phase 17's bench record here")
     args = ap.parse_args()
     started = time.perf_counter()
     import gc
@@ -3844,6 +4096,12 @@ def main() -> int:
     res["report"]["sweeps"] = sweeps_phase(torch, path_launches, card)
     log(f"[16] graft entry and kernel sweeps phase took "
         f"{time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------- 17: the benchmark driver
+    t0 = time.perf_counter()
+    res["report"]["bench"] = bench_phase(torch, path_launches, card,
+                                         args.bench_out)
+    log(f"[17] benchmark driver phase took {time.perf_counter() - t0:.1f} s")
 
     launches = {name: 0 for name in kernels.KERNELS}
     for counts in path_launches.values():

@@ -32,16 +32,11 @@ so that no test leaves a cache behind.
 
 import json
 import sys
-import zlib
 from pathlib import Path
 
-import jax
-import jax.numpy as jnp
-import numpy as np
 import pytest
 import torch
 
-from postgres_word2vec_tpu.evaluation import synth as jsynth
 from postgres_word2vec_tpu.models.ivfadc import IVFADCIndex as JIVFADC
 from postgres_word2vec_tpu.models.ivpq import IVPQIndex as JIVPQ
 from postgres_word2vec_tpu.models import pq as jpq_mod
@@ -54,8 +49,9 @@ from postgres_word2vec_tpu_torch.models.ivfadc import IVFADCIndex
 from postgres_word2vec_tpu_torch.models.ivpq import IVPQIndex
 from postgres_word2vec_tpu_torch.models.pq import PQIndex, train_opq_rotation
 from postgres_word2vec_tpu_torch.ops.kmeans import encode_subspaces
-from test_torch_parity_util import (REPO, assert_same_top_k, clustered,
-                                    jax_script)
+from test_torch_parity_util import (REPO, SameIndexes,  # noqa: F401
+                                    assert_same_top_k, jax_script, rows,
+                                    same_data)
 
 TOL = 1e-5
 #: fields that hold times, or rates and lists derived from them
@@ -63,72 +59,6 @@ TIMES = {"total_s", "trials_s", "qps", "prepare_join_s", "per_query_ms",
          "build_s", "secs", "wall_s", "gbps", "tflops", "tops"}
 DRIVERS = (recall_ceiling, synth_calibrate, join_nq_sweep, join_method_diag,
            scale_capacity, scale_join_10M, roofline)
-
-
-def rows(seed: int, n: int, d: int, params: dict) -> np.ndarray:
-    """The rows both packages' generators return: clustered unit rows, a
-    function of the seed, the sizes and the generator parameters."""
-    tag = zlib.crc32(json.dumps(params, sort_keys=True).encode())
-    rng = np.random.default_rng([seed, n, d, tag])
-    return clustered(rng, n=n, d=d, centers=max(8, n // 64))
-
-
-@pytest.fixture
-def same_data(monkeypatch):
-    """Patch both packages' word-like and mixture generators to
-    :func:`rows`; ``force_d`` replaces the width the JAX script asks for
-    (its sizes are fixed), and the JAX scripts' cache settings are
-    dropped."""
-    force = {}
-
-    def jax_gen(kind):
-        def gen(key, n, d=300, **params):
-            seed = int(np.asarray(key)[-1])
-            return jnp.asarray(rows(seed, n, force.get("d", d),
-                                    {"kind": kind, **params}))
-        return gen
-
-    def port_gen(kind):
-        def gen(generator, n, d=300, **params):
-            out = rows(generator.initial_seed(), n, d,
-                       {"kind": kind, **params})
-            return torch.from_numpy(out).to(generator.device)
-        return gen
-
-    for mod, make in ((jsynth, jax_gen), (synth, port_gen)):
-        monkeypatch.setattr(mod, "generate_wordlike", make("wordlike"))
-        monkeypatch.setattr(mod, "generate_mixture", make("mixture"))
-    update = jax.config.update
-    monkeypatch.setattr(jax.config, "update", lambda name, value: None
-                        if "cache" in name else update(name, value))
-    return force
-
-
-class SameIndexes:
-    """The JAX script's ``build`` calls, with ``over`` replacing some of
-    their arguments, recorded in order; the port's ``build`` calls then
-    return those indexes, loaded by the port, in the same order."""
-
-    def __init__(self, monkeypatch, tmp_path):
-        self.mp, self.tmp, self.built = monkeypatch, tmp_path, []
-
-    def jax(self, cls, name="build", **over):
-        orig = getattr(cls, name)
-
-        def build(*args, **kw):
-            idx = orig(*args, **{**kw, **over})
-            self.built.append(idx)
-            return idx
-        self.mp.setattr(cls, name, build)
-
-    def port_index(self, loader):
-        path = self.tmp / f"idx{len(self.built)}.npz"
-        self.built.pop(0).save(path)
-        return loader(path, device="cpu")
-
-    def port(self, cls):
-        self.mp.setattr(cls, "build", lambda *a, **kw: self.port_index(
-            cls.load))
 
 
 def run_jax(monkeypatch, capsys, script: str, args: list[str]):

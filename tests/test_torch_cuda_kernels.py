@@ -1682,3 +1682,33 @@ def test_graft_forward_on_the_card_launches_k2_once():
     assert {k: v for k, v in kernels.launch_counts().items() if v} == {
         "adc_scan": 1}
     assert vals.is_cuda and vals.shape == (16, 5) and retrieved.shape == (16,)
+
+
+def test_bench_section_that_raises_exits_non_zero_on_the_card(tmp_path):
+    """``cli.bench`` on the card (no ``--device``) with its PQ section
+    raising: the exact rows run (K1 launched), then the process exits
+    non-zero and writes no record and no line."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import sys\n"
+        "from postgres_word2vec_tpu_torch.cli import bench\n"
+        "from postgres_word2vec_tpu_torch.ops import kernels\n"
+        "def boom(*a, **kw):\n"
+        "    print('K1', kernels.launch_counts()['fused_exact_scan'],\n"
+        "          file=sys.stderr)\n"
+        "    raise RuntimeError('pq256 failed')\n"
+        "bench.N_SMALL, bench.D = 16384, 60\n"
+        "bench.pq256_section = boom\n"
+        "bench.main(sys.argv[1:])\n")
+    out = tmp_path / "bench.json"
+    proc = subprocess.run(
+        [sys.executable, "-c", code, "--small", "--out", str(out)],
+        cwd=Path(__file__).resolve().parents[1], capture_output=True,
+        text=True, timeout=600)
+    assert proc.returncode != 0
+    assert "pq256 failed" in proc.stderr
+    assert "K1 17" in proc.stderr
+    assert proc.stdout == "" and not out.exists()

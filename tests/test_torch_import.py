@@ -13,9 +13,8 @@ import postgres_word2vec_tpu_torch
 REPO = Path(__file__).resolve().parent.parent
 #: the command-line drivers, one for each script of the repository's
 #: index_creation/, evaluation/ and examples/ directories (the research
-#: drivers and kernel sweeps of evaluation/ with their shared module): every
-#: script but evaluation/gen_readme_table.py, which renders bench.py's JSON
-#: and waits for bench.py's port
+#: drivers and kernel sweeps of evaluation/ with their shared module), and
+#: bench.py's port, cli.bench: every script now has a port
 CLI_MODULES = tuple(
     f"cli.{group}.{name}" for group, names in (
         ("index_creation", ("vec2database", "transform_vecs", "pq_index",
@@ -28,9 +27,10 @@ CLI_MODULES = tuple(
                         "join_nq_sweep", "join_method_diag",
                         "scale_capacity", "scale_join_10M", "roofline",
                         "budget_kernel_sweep", "adc_kernel_probe",
-                        "exact_block_sweep", "_research")),
+                        "exact_block_sweep", "gen_readme_table",
+                        "_research")),
         ("examples", ("quickstart", "serving", "multichip")))
-    for name in names) + ("cli._common",)
+    for name in names) + ("cli._common", "cli.bench")
 
 
 def _port_modules():
@@ -82,7 +82,7 @@ def test_every_port_module_imports_with_jax_blocked():
 def test_every_cli_module_imports_with_jax_blocked():
     """Each driver imports with ``jax``, ``aiohttp`` and ``matplotlib``
     blocked, and imports nothing of the JAX package nor of the root
-    ``evaluation/`` and ``index_creation/`` directories."""
+    ``evaluation/`` and ``index_creation/`` directories or ``bench.py``."""
     code = textwrap.dedent(f"""
         import importlib, sys
         for blocked in ("jax", "aiohttp", "matplotlib"):
@@ -92,7 +92,7 @@ def test_every_cli_module_imports_with_jax_blocked():
         import torch
         assert not any(m.split(".")[0] in (
             "jax", "aiohttp", "matplotlib", "postgres_word2vec_tpu",
-            "evaluation", "index_creation", "_common")
+            "evaluation", "index_creation", "_common", "bench")
             for m, v in sys.modules.items() if v is not None)
         assert not torch.cuda.is_initialized()
         print("clean")

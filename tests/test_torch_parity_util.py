@@ -1,13 +1,18 @@
 """Helpers for holding the PyTorch port to the JAX package on the same
 numpy inputs (imported by tests/test_torch_*.py): conversions, small
 clustered data, the small JAX engines the engine tests load in the port
-(:func:`save_jax_engine`), and tests of the helpers' own tie rules."""
+(:func:`save_jax_engine`), the drivers' shared data and indexes
+(:func:`same_data`, :class:`SameIndexes`), and tests of the helpers' own
+tie rules."""
 
 import importlib.util
+import json
 import sys
+import zlib
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
@@ -50,6 +55,79 @@ def clustered(rng, n=4096, d=48, centers=64):
     x = c[rng.integers(0, centers, n)] + 0.6 * rng.normal(size=(n, d))
     x /= np.linalg.norm(x, axis=1, keepdims=True)
     return x.astype(np.float32)
+
+
+# ------------------------------------------------- the drivers' shared inputs
+def rows(seed: int, n: int, d: int, params: dict) -> np.ndarray:
+    """The rows both packages' generators return: clustered unit rows, a
+    function of the seed, the sizes and the generator parameters."""
+    tag = zlib.crc32(json.dumps(params, sort_keys=True).encode())
+    rng = np.random.default_rng([seed, n, d, tag])
+    return clustered(rng, n=n, d=d, centers=max(8, n // 64))
+
+
+@pytest.fixture
+def same_data(monkeypatch):
+    """Patch both packages' word-like and mixture generators to
+    :func:`rows`; ``force_d`` replaces the width the JAX script asks for
+    (its sizes are fixed), and the JAX scripts' cache settings are
+    dropped."""
+    import jax
+    import jax.numpy as jnp
+
+    from postgres_word2vec_tpu.evaluation import synth as jsynth
+    from postgres_word2vec_tpu_torch.evaluation import synth
+
+    force = {}
+
+    def jax_gen(kind):
+        def gen(key, n, d=300, **params):
+            seed = int(np.asarray(key)[-1])
+            return jnp.asarray(rows(seed, n, force.get("d", d),
+                                    {"kind": kind, **params}))
+        return gen
+
+    def port_gen(kind):
+        def gen(generator, n, d=300, **params):
+            out = rows(generator.initial_seed(), n, d,
+                       {"kind": kind, **params})
+            return torch.from_numpy(out).to(generator.device)
+        return gen
+
+    for mod, make in ((jsynth, jax_gen), (synth, port_gen)):
+        monkeypatch.setattr(mod, "generate_wordlike", make("wordlike"))
+        monkeypatch.setattr(mod, "generate_mixture", make("mixture"))
+    update = jax.config.update
+    monkeypatch.setattr(jax.config, "update", lambda name, value: None
+                        if "cache" in name else update(name, value))
+    return force
+
+
+class SameIndexes:
+    """The JAX script's ``build`` calls, with ``over`` replacing some of
+    their arguments, recorded in order; the port's ``build`` calls then
+    return those indexes, loaded by the port, in the same order."""
+
+    def __init__(self, monkeypatch, tmp_path):
+        self.mp, self.tmp, self.built = monkeypatch, tmp_path, []
+
+    def jax(self, cls, name="build", **over):
+        orig = getattr(cls, name)
+
+        def build(*args, **kw):
+            idx = orig(*args, **{**kw, **over})
+            self.built.append(idx)
+            return idx
+        self.mp.setattr(cls, name, build)
+
+    def port_index(self, loader):
+        path = self.tmp / f"idx{len(self.built)}.npz"
+        self.built.pop(0).save(path)
+        return loader(path, device="cpu")
+
+    def port(self, cls):
+        self.mp.setattr(cls, "build", lambda *a, **kw: self.port_index(
+            cls.load))
 
 
 def save_jax_engine(path, *, data_seed, n=4096, statistics=None,
