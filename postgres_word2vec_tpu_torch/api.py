@@ -63,7 +63,8 @@ from postgres_word2vec_tpu_torch.parallel import sharding
 from postgres_word2vec_tpu_torch.store import VectorStore
 from postgres_word2vec_tpu_torch.utils import convert
 from postgres_word2vec_tpu_torch.utils.device import resolve_device
-from postgres_word2vec_tpu_torch.utils.tracker import GLOBAL_TRACKER
+from postgres_word2vec_tpu_torch.utils.tracker import (GLOBAL_TRACKER, host,
+                                                       host_reads)
 
 
 @dataclasses.dataclass
@@ -377,8 +378,9 @@ class Freddy:
     def _format_knn(self, dists: torch.Tensor, ids: torch.Tensor
                     ) -> list[list[tuple]]:
         """(B, k) results → per-query [(word, similarity), …]. One small
-        device → host copy, then host numpy math."""
-        sims = vo.sim_from_sqdist(dists.detach().cpu().numpy())
+        device → host copy of the distances (:func:`host`; the join paths
+        pass ids already read), then host numpy math."""
+        sims = vo.sim_from_sqdist(host(dists.detach()).numpy())
         ids_np = ids.detach().cpu().numpy()
         out = []
         for b in range(ids_np.shape[0]):
@@ -741,47 +743,55 @@ class Freddy:
             n = np.asarray(queries).shape[0] if np.ndim(queries) > 1 else 1
             names = [f"q{i}" for i in range(n)]
         p = self.params
-        with self.tracker.stage("total_time"):
+        tr = self.tracker
+        with tr.span("total_time"):
             ph = self._resolve_prepared(targets)
-            with self.tracker.stage("query_construction_time"):
+            with tr.span("query_construction_time"):
                 q = self._query_matrix(queries)
                 if ph is None:
                     tids, tmask = self._target_ids(targets)
             if self.track_stages:
                 self._track_precompute(q, ivpq.codebook.centroids)
-            t0 = time.perf_counter()
-            if self.mesh is not None:
-                if ph is not None:
-                    tids, tmask = ph.target_ids, ph.target_mask
-                qp, b = self._pad_q(q)
-                d, i = sharding.sharded_ivpq_join(
-                    self.mesh, ivpq, qp, k, tids, target_mask=tmask,
-                    vectors=self.store.vectors_norm,
-                    statistics=self._active_statistics(), alpha=p.alpha,
-                    pvf=p.pvf, method=p.method, confidence=p.confidence)
-                d, i, info = d[:b], i[:b], None
-            else:
-                d, i, info = ivpq.search_join(
-                    q, k, None if ph is not None else tids, prepared=ph,
-                    target_mask=None if ph is not None else tmask,
-                    vectors=(None if ph is not None
-                             else self.store.vectors_norm),
-                    statistics=self._active_statistics(), alpha=p.alpha,
-                    pvf=p.pvf, method=p.method, confidence=p.confidence,
-                    long_codes_threshold=p.long_codes_threshold,
-                    use_targetlists=p.use_targetlist,
-                    lut_dtype=p.pq_lut_dtype, return_info=True)
-            ids_host = i.cpu()            # wait for the device
-            elapsed = time.perf_counter() - t0
+            reads = host_reads()
+            with tr.span("join_search_time") as search:
+                if self.mesh is not None:
+                    if ph is not None:
+                        tids, tmask = ph.target_ids, ph.target_mask
+                    qp, b = self._pad_q(q)
+                    d, i = sharding.sharded_ivpq_join(
+                        self.mesh, ivpq, qp, k, tids, target_mask=tmask,
+                        vectors=self.store.vectors_norm,
+                        statistics=self._active_statistics(),
+                        alpha=p.alpha, pvf=p.pvf, method=p.method,
+                        confidence=p.confidence)
+                    d, i, info = d[:b], i[:b], None
+                else:
+                    d, i, info = ivpq.search_join(
+                        q, k, None if ph is not None else tids, prepared=ph,
+                        target_mask=None if ph is not None else tmask,
+                        vectors=(None if ph is not None
+                                 else self.store.vectors_norm),
+                        statistics=self._active_statistics(), alpha=p.alpha,
+                        pvf=p.pvf, method=p.method, confidence=p.confidence,
+                        long_codes_threshold=p.long_codes_threshold,
+                        use_targetlists=p.use_targetlist,
+                        lut_dtype=p.pq_lut_dtype, return_info=True)
+            with tr.span("join_read_time") as read:
+                ids_host = host(i)            # wait for the device
+            elapsed = search.seconds + read.seconds
             dr = 0.0 if info is None else info["data_retrieval_s"]
-            self.tracker.track("data_retrieval_time", dr)
-            self.tracker.track("computation_time", max(elapsed - dr, 0.0))
+            tr.track("data_retrieval_time", dr)
+            tr.track("computation_time", max(elapsed - dr, 0.0))
             if info is not None:
-                for r in info["retrieved"].tolist():
-                    self.tracker.track("retrieved", float(r))
-                for t in info["target_count"].tolist():
-                    self.tracker.track("target_count", float(t))
-        return self._format_join(names, d, ids_host)
+                for r in host(info["retrieved"]).tolist():
+                    tr.track("retrieved", float(r))
+                for t in host(info["target_count"]).tolist():
+                    tr.track("target_count", float(t))
+        with tr.span("join_format_time"):
+            rows = self._format_join(names, d, ids_host)
+        if info is not None:
+            tr.track("join_host_reads", host_reads() - reads)
+        return rows
 
     # ============================================================= analogy
     def analogy(self, w1: str, w2: str, w3: str) -> str:

@@ -57,7 +57,7 @@ def main(config_path: str,
             t0 = time.perf_counter()
             fn(queries, k, targets)
             wall = time.perf_counter() - t0
-            stages = eng.tracker.get_results()
+            stages = eng.tracker.track_results()
             inner = sum(stages.get("total_time", [0.0]))
             out.append({"method": mname, "queries": n_q,
                         "targets": len(targets),

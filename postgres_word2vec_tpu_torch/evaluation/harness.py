@@ -101,10 +101,11 @@ def batch_measurement(engine: Freddy, queries: Sequence[str], k: int,
 def create_track_statistics(engine: Freddy, fn_name: str, *args) -> dict:
     """Run a query family and return the stage-metric dict
     (evaluation_utils.py:84-98). Metric names match the reference's TRACK
-    keys so step-wise breakdowns port directly."""
+    keys so step-wise breakdowns port directly; the server's spans and
+    counters are left out."""
     engine.tracker.clear_track()
     getattr(engine, fn_name)(*args)
-    return engine.tracker.get_results()
+    return engine.tracker.track_results()
 
 
 def time_precision_sweep(engine: Freddy, queries: Sequence[str], k: int,

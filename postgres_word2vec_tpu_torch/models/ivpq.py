@@ -54,6 +54,7 @@ from postgres_word2vec_tpu_torch.models.pq import (PQCodebook, _sample_rows,
 from postgres_word2vec_tpu_torch.ops import adc, kernels, kmeans, lut
 from postgres_word2vec_tpu_torch.ops import topk as topk_ops
 from postgres_word2vec_tpu_torch.ops.vector_ops import no_tf32
+from postgres_word2vec_tpu_torch.utils.tracker import host
 
 # Distance-phase method flags (parity: index_utils.h:103).
 PQ_CALC = 0
@@ -541,7 +542,8 @@ def _merge_round(best, new, resolved: torch.Tensor, k: int):
     br = torch.where(upd, retrieved, best[2])
     bp = torch.where(upd, predicted, best[3])
     resolved = resolved | (retrieved >= k)
-    return (bv, bi, br, bp), resolved, bool(torch.all(resolved | exhausted))
+    return ((bv, bi, br, bp), resolved,
+            bool(host(torch.all(resolved | exhausted))))
 
 
 @dataclasses.dataclass
@@ -656,7 +658,10 @@ class IVPQIndex:
         round's ADC LUTs per query where the grouped kernel is chosen (K8
         on the card, its plain version on the CPU); where the per-query
         kernel is chosen it warns and keeps float32 LUTs, and the dense
-        round ignores it — all as in the JAX package."""
+        round ignores it — all as in the JAX package. ``return_info`` adds
+        a dict: per-query ``retrieved`` and ``target_count``, ``rounds``,
+        ``final_alpha`` and ``data_retrieval_s``. Its device → host reads
+        go through :func:`.tracker.host`, which counts them."""
         if lut_dtype not in ("bf16", "int8"):
             raise ValueError(f"lut_dtype must be 'bf16' or 'int8', "
                              f"got {lut_dtype!r}")
@@ -691,7 +696,7 @@ class IVPQIndex:
             built = (method == EXACT_CALC) not in prepared._tiles
             jt = prepared.tiles(with_vecs=method == EXACT_CALC)
             if built:
-                jt.t_real.item()
+                host(jt.t_real).item()
                 data_retrieval_s = time.perf_counter() - t0
         call = _JoinCall(prepared, jt, statistics.to(queries.device), k, pvf,
                          method, float(confidence),
@@ -722,8 +727,8 @@ class IVPQIndex:
         and shape, since a torch tensor can change in place (an in-place
         write bumps ``_version``; a grown store is a new tensor)."""
         h = hashlib.blake2b(digest_size=16)
-        h.update(target_ids.detach().cpu().numpy().tobytes())
-        h.update(target_mask.detach().cpu().numpy().tobytes())
+        h.update(host(target_ids.detach()).numpy().tobytes())
+        h.update(host(target_mask.detach()).numpy().tobytes())
         vec_key = None
         if with_vecs:
             vec_key = (id(vectors), vectors._version, vectors.data_ptr(),
@@ -746,7 +751,7 @@ class IVPQIndex:
             return hit[0], 0.0
         t0 = time.perf_counter()
         jt = prepared.tiles(with_vecs=with_vecs)
-        jt.t_real.item()                          # wait for the build
+        host(jt.t_real).item()                    # wait for the build
         seconds = time.perf_counter() - t0
         if len(self._join_cache) >= self._JOIN_CACHE_CAP:
             self._join_cache.pop(next(iter(self._join_cache)))
@@ -761,7 +766,7 @@ class IVPQIndex:
         resolved = retrieved >= call.k
         return dict(best=(vals, ids, retrieved, predicted),
                     resolved=resolved,
-                    done=bool(torch.all(resolved | exhausted)))
+                    done=bool(host(torch.all(resolved | exhausted))))
 
     def _join_escalate(self, queries: torch.Tensor, state: dict,
                        call: _JoinCall, alpha: int, max_rounds: int):

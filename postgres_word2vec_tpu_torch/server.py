@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from postgres_word2vec_tpu_torch.api import Freddy, NoMatrixCore
+from postgres_word2vec_tpu_torch.utils.tracker import GLOBAL_TRACKER, Span
 
 #: the /knn and /knn_in handlers' default k
 DEFAULT_K = 5
@@ -431,11 +432,16 @@ class EngineRunner:
             self._run_knn_batch([(w0, k)] * b)
             b *= 2
 
-    def run_plain(self, path: str, body: dict):
+    def run_plain(self, path: str, body: dict, *,
+                  queued: Span | None = None):
         """The endpoints that are not micro-batched, under the device
-        lock."""
+        lock. ``queued``: the request's open ``fe_queue_time`` span, ended
+        once the lock is held; the engine's spans then belong to its
+        request."""
         eng = self.engine
-        with self._lock:
+        with self._lock, GLOBAL_TRACKER.request(queued and queued.request):
+            if queued is not None:
+                queued.end()
             if path == "/knn_batch":
                 return eng.knn_batch(body["queries"], int(body.get("k", 5)))
             if path == "/knn_join":

@@ -33,6 +33,7 @@ from postgres_word2vec_tpu_torch.api import Freddy
 from postgres_word2vec_tpu_torch.server import (EngineRunner,
                                                 UnknownEndpoint,
                                                 load_engine, parse_knn_item)
+from postgres_word2vec_tpu_torch.utils.tracker import GLOBAL_TRACKER, Span
 
 #: the largest request body read (larger ones answer 413)
 MAX_BODY_BYTES = 64 << 20
@@ -283,7 +284,8 @@ class AsyncQueryServer:
                            self.DEFAULT_K if k is None else k)
 
     def start(self) -> "AsyncQueryServer":
-        self._thread = threading.Thread(target=self._run_loop, daemon=True)
+        self._thread = threading.Thread(target=self._run_loop, daemon=True,
+                                        name="frontend")
         self._thread.start()
         if not self._ready.wait(timeout=60):
             raise RuntimeError("async server failed to start")
@@ -360,9 +362,12 @@ class AsyncQueryServer:
                 if req is None:
                     break
                 method, path, body, keep_alive = req
-                status, payload = await self._route(method, path, body)
+                status, payload, reply = await self._route(method, path,
+                                                           body)
                 writer.write(_response(status, payload, keep_alive))
                 await writer.drain()
+                if reply is not None:
+                    reply.end()
                 if not keep_alive:
                     break
         except ConnectionError:
@@ -372,26 +377,50 @@ class AsyncQueryServer:
             writer.close()
 
     async def _route(self, method: str, path: str, body: bytes
-                     ) -> tuple[int, dict]:
+                     ) -> tuple[int, dict, Span | None]:
+        """→ (status, payload, the open ``fe_reply_time`` span of an
+        executor endpoint's answer, for the caller to end once written).
+
+        An executor endpoint's request gets a request id here, as its last
+        byte has been read; its ``fe_queue_time`` span runs from here
+        (through the JSON decode) until the engine thread holds the
+        device lock, and its ``fe_reply_time`` span from the engine's
+        return until the response is written."""
         if method == "GET" and path == "/health":
-            return 200, self._health()
+            return 200, self._health(), None
         if method != "POST":       # every other path takes POST only
-            return 405, {"error": f"method {method} not allowed"}
+            return 405, {"error": f"method {method} not allowed"}, None
         self._requests += 1
+        batched = path in ("/knn", "/knn_in")
+        queued = None
+        if not batched:
+            rid = GLOBAL_TRACKER.new_request()
+            queued = GLOBAL_TRACKER.begin("fe_queue_time", request=rid)
         try:
             req = json.loads(body) if body else {}
-            if path in ("/knn", "/knn_in"):
+            if batched:
                 batcher = (self._knn_batcher if path == "/knn"
                            else self._knn_in_batcher)
                 result = await batcher.submit(parse_knn_item(path, req))
-            else:
-                result = await asyncio.get_running_loop().run_in_executor(
-                    self._executor, self.runner.run_plain, path, req)
-            return 200, {"result": result}
+                return 200, {"result": result}, None
+            result, reply = await asyncio.get_running_loop(
+                ).run_in_executor(self._executor, self._run_plain, path,
+                                  req, queued)
+            return 200, {"result": result}, reply
         except UnknownEndpoint as e:
-            return 404, {"error": str(e)}
+            return 404, {"error": str(e)}, None
         except Exception as e:  # noqa: BLE001 — serve errors as 400
-            return 400, {"error": f"{type(e).__name__}: {e}"}
+            return 400, {"error": f"{type(e).__name__}: {e}"}, None
+        finally:
+            if queued is not None:
+                queued.end()        # a request that failed before the lock
+
+    def _run_plain(self, path: str, req: dict, queued: Span):
+        """On the engine thread: the endpoint under the device lock, then
+        the ``fe_reply_time`` span opened as the engine returns."""
+        result = self.runner.run_plain(path, req, queued=queued)
+        return result, GLOBAL_TRACKER.begin("fe_reply_time",
+                                            request=queued.request)
 
     def _health(self) -> dict:
         h = self.runner.health(self._requests, self._started)

@@ -171,18 +171,6 @@ def test_profiling_on_the_cpu(tmp_path):
     trace = json.loads((tmp_path / "tr" / profiling.TRACE_FILE).read_text())
     assert d == str(tmp_path / "tr")
     assert any(e.get("name") == "span" for e in trace["traceEvents"])
-    assert profiling.device_busy_share(
-        tmp_path / "tr" / profiling.TRACE_FILE, 1.0) == 0.0
-
-
-def test_device_busy_share_merges_overlapping_spans(tmp_path):
-    events = [{"cat": "kernel", "ts": 0, "dur": 100},
-              {"cat": "kernel", "ts": 50, "dur": 100},     # overlaps
-              {"cat": "gpu_memcpy", "ts": 400, "dur": 100},
-              {"cat": "cpu_op", "ts": 0, "dur": 10_000}]   # host: ignored
-    path = tmp_path / "t.json"
-    path.write_text(json.dumps({"traceEvents": events}))
-    assert profiling.device_busy_share(path, 0.001) == pytest.approx(0.25)
 
 
 def test_serving_busy_share_averages_nvidia_smi_samples():
