@@ -1673,6 +1673,7 @@ def sharding_phase(torch, eng, store, q256, qjoin, jwords, ph100k, errs,
     overhead, not multi-GPU scaling."""
     import dataclasses
     from postgres_word2vec_tpu_torch import Freddy
+    from postgres_word2vec_tpu_torch.models import ivfadc as ivfadc_mod
     from postgres_word2vec_tpu_torch.models import ivpq as ivpq_mod
     from postgres_word2vec_tpu_torch.ops import kernels, kmeans, lut
     from postgres_word2vec_tpu_torch.parallel import sharding
@@ -1828,6 +1829,9 @@ def sharding_phase(torch, eng, store, q256, qjoin, jwords, ph100k, errs,
                 mesh, jq, cc, cb, statistics=stats, k=JOIN_K, alpha=200,
                 pvf=20, method=method, confidence=0.8, **targets)
             full = found >= retrieved
+            check(bool(full.all()), f"mesh {tag} method {method}: the "
+                  f"budget round cut {int((~full).sum())} queries' cells "
+                  f"short")
             tol = 1e-2 if method == 1 else 1e-5     # K9/K10 read bf16 rows
             if full.any():
                 same_top_k(torch, d_b[full], i_b[full], d_d[full], i_d[full],
@@ -1843,9 +1847,17 @@ def sharding_phase(torch, eng, store, q256, qjoin, jwords, ph100k, errs,
                 mesh, ivpq, big, JOIN_K, tids, vectors=store.vectors_norm,
                 impl="budget", **kw))
             launched[f"join_budget_full_m{method}"] = path_launches[path]
+            # shard 0's plan, fitted to its largest selection as the
+            # budget round fits it, for the budget kernels at its tiles
+            jt = tiles["jt"][0][dev]
+            start, cnt, *_ = ivpq_mod.select_tiles(
+                jq, cc, stats, jt, JOIN_K, 200, 0.8, tiles["t_real"],
+                tiles["cell_counts"])
+            p0 = ivpq_mod.fit_budget([cnt], max(tiles["n_tiles"] - 1, 1))
+            plan, _ = ivfadc_mod.plan_probe_tiles(p0, start, cnt, jt.inf_tile)
             join[f"m{method}"] = {
                 "full_coverage_share": float(full.float().mean()),
-                "p_budget": sharding.join_p_budget(mesh, tiles, JOIN_K, 200),
+                "p_budget": p0,
                 "ms_per_query_dense": p50(cuda_ms(torch, lambda: eng_s
                                                   .knn_in_ivpq_batch(
                                                       jw, JOIN_K, "t100k"),
@@ -1854,12 +1866,7 @@ def sharding_phase(torch, eng, store, q256, qjoin, jwords, ph100k, errs,
                     torch, lambda: ivpq.search_join(
                         jq, JOIN_K, prepared=ph100k, impl="dense", **kw),
                     reps=3)) / EVAL_Q}
-            # the budget kernels at this shard's tiles, block_t 128
-            jt = tiles["jt"][0][dev]
-            plan, *_ = ivpq_mod.probe_tiles(
-                jq, cc, stats, jt, JOIN_K, 200, 0.8,
-                join["m%d" % method]["p_budget"], tiles["t_real"],
-                tiles["cell_counts"])
+            # the budget kernels at shard 0's tiles, block_t 128
             what = (f"mesh {tag} shard 0 join B={EVAL_Q} "
                     f"P={plan.shape[1]} block_t={jt.block_t}")
             if method == 0:
@@ -3168,11 +3175,14 @@ def engine_phases(torch, args) -> dict:
     stats100k = None
 
     def join_plan(jt, qs, alpha, stats):
-        p = ivpq._budget_for(jt, JOIN_K, alpha, None)
+        """The served budget round's plan: its selections' tiles, P fitted
+        to the largest (``IVPQIndex._budget_for``)."""
         st = ivpq_mod.uniform_statistics(ivpq.coarse.cell_counts) \
             if stats is None else stats
-        tiles, *_ = ivpq_mod.probe_tiles(qs, ivpq.coarse.centroids, st, jt,
-                                         JOIN_K, alpha, 0.8, p)
+        start, cnt, *_ = ivpq_mod.select_tiles(
+            qs, ivpq.coarse.centroids, st, jt, JOIN_K, alpha, 0.8)
+        p = ivpq._budget_for(jt, None, [cnt])
+        tiles, _ = ivfadc_mod.plan_probe_tiles(p, start, cnt, jt.inf_tile)
         return tiles
 
     eng.create_statistics("t100k", words[:JOIN_T])
@@ -3239,6 +3249,20 @@ def engine_phases(torch, args) -> dict:
         kernels.budget_adc_plain(luts_join, jt_all.codes_t, jt_all.rowterm,
                                  tiles_3m, block_t=jt_all.block_t),
         "budget_adc", "join 3M B=512"))
+    # K6 over fused-pair int16 codes at the short-codes join's shape
+    # (set_long_codes_threshold(0), alpha = |targets| / (2k) = 10,000):
+    # 15 x 1024 float32 LUTs a query, P near 600 tiles of 256 rows
+    luts_short = lut.build_double_luts(luts_join)
+    codes_short = jt100.fused_codes_t(ivpq.codebook.centroids.shape[1])
+    tiles_short = join_plan(jt100, qj, 10_000, stats100k)
+    errs["budget_adc"] = max(errs["budget_adc"], budget_err(
+        torch, kernels.budget_adc(luts_short, codes_short, jt100.rowterm,
+                                  tiles_short, block_t=jt100.block_t),
+        kernels.budget_adc_plain(luts_short, codes_short, jt100.rowterm,
+                                 tiles_short, block_t=jt100.block_t),
+        "budget_adc", f"short-codes join 100k B=512 "
+        f"P={tiles_short.shape[1]} 15x1024 int16"))
+    del luts_short, tiles_short
     errs["budget_exact"] = max(errs["budget_exact"], budget_err(
         torch, kernels.budget_exact(qj, jt100v.vecs, jt100v.rownorm,
                                     tiles_jv, block_t=jt100v.block_t),

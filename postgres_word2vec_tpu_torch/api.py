@@ -730,8 +730,10 @@ class Freddy:
         a registered one. TRACK stages as in the reference
         (ivpq_search_in.c:233-697): query construction, data retrieval
         (the target tiling build; 0 on a prepared handle) and computation,
-        plus per-query ``retrieved`` and ``target_count``. Under a mesh the
-        join runs sharded over the targets
+        plus per-query ``retrieved`` and ``target_count`` and, one value a
+        statement, ``join_host_reads``, ``join_short_codes`` (1 where a
+        round scanned fused-pair codes) and ``join_scan_slots`` (candidate
+        slots a query). Under a mesh the join runs sharded over the targets
         (:func:`parallel.sharding.sharded_ivpq_join`, the dense round; a
         prepared handle gives its targets) and reports no per-query counts,
         as in the JAX engine."""
@@ -791,6 +793,8 @@ class Freddy:
             rows = self._format_join(names, d, ids_host)
         if info is not None:
             tr.track("join_host_reads", host_reads() - reads)
+            tr.track("join_short_codes", float(info["short_codes"]))
+            tr.track("join_scan_slots", info["scan_slots"])
         return rows
 
     # ============================================================= analogy

@@ -390,16 +390,17 @@ def build_join_tiles(target_codes: torch.Tensor, target_cells: torch.Tensor,
         rownorm=rownorm, inf_tile=nt - 1, cache={})
 
 
-def probe_tiles(queries: torch.Tensor, coarse_centroids: torch.Tensor,
-                statistics: torch.Tensor, jt: JoinTiles, k: int, alpha: int,
-                confidence: float, p_budget: int,
-                t_real_override: torch.Tensor | None = None,
-                cell_counts_override: torch.Tensor | None = None
-                ) -> tuple[torch.Tensor, ...]:
-    """Each query's selected cells planned into ``p_budget`` tile slots →
-    (tiles (B, P) int32, exhausted (B,), predicted (B,), retrieved_sel
-    (B,)), as :func:`_select_cells` defines them; the overrides as in
-    :func:`_ivpq_round`."""
+def select_tiles(queries: torch.Tensor, coarse_centroids: torch.Tensor,
+                 statistics: torch.Tensor, jt: JoinTiles, k: int, alpha: int,
+                 confidence: float,
+                 t_real_override: torch.Tensor | None = None,
+                 cell_counts_override: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, ...]:
+    """Each query's selected cells as runs of tiles, in probe order →
+    (start (B, C) first tile of each cell, cnt (B, C) its tiles, 0 past
+    the selection, exhausted (B,), predicted (B,), retrieved_sel (B,)), as
+    :func:`_select_cells` defines them; the overrides as in
+    :func:`_ivpq_round`. ``cnt.sum(1)`` is the tiles a query needs."""
     num_cells = statistics.shape[0] - 1
     order, n_sel, exhausted, predicted, retrieved_sel = _select_cells(
         queries, coarse_centroids, statistics,
@@ -409,32 +410,36 @@ def probe_tiles(queries: torch.Tensor, coarse_centroids: torch.Tensor,
         alpha, confidence)
     rank_lt = (torch.arange(num_cells, device=queries.device)[None, :]
                < n_sel[:, None])
-    tiles, _ = plan_probe_tiles(
-        p_budget, jt.tile_start[order],
-        torch.where(rank_lt, jt.tile_cnt[order], 0), jt.inf_tile)
-    return tiles, exhausted, predicted, retrieved_sel
+    return (jt.tile_start[order], torch.where(rank_lt, jt.tile_cnt[order], 0),
+            exhausted, predicted, retrieved_sel)
 
 
-def _ivpq_round_budget(queries: torch.Tensor, coarse_centroids: torch.Tensor,
-                       codebook_cent: torch.Tensor, jt: JoinTiles,
-                       vectors: torch.Tensor | None,
-                       statistics: torch.Tensor, k: int, alpha: int,
-                       pvf: int, method: int, confidence: float,
+def fit_budget(counts: list[torch.Tensor], cap: int) -> int:
+    """Tile slots a budget round plans for each query: the most tiles any
+    query's selected cells take (the ``cnt`` of :func:`select_tiles`, over
+    every block in ``counts``; one host read), in sixteens, at most
+    ``cap``. Unlike the JAX package's power of two for the expected k·alpha
+    rows, no query's cells are cut short (ivpq_search_in.c:355-401 fetches
+    every selected cell)."""
+    need = int(host(torch.stack([c.sum(1).max() for c in counts]).max()))
+    return max(1, min(-(-need // 16) * 16, cap))
+
+
+def _ivpq_round_budget(queries: torch.Tensor, codebook_cent: torch.Tensor,
+                       jt: JoinTiles, vectors: torch.Tensor | None,
+                       selection: tuple, k: int, pvf: int, method: int,
                        use_double: bool, p_budget: int, lut_dtype: str,
-                       target_ids: torch.Tensor, pregathered: bool,
-                       t_real_override: torch.Tensor | None = None,
-                       cell_counts_override: torch.Tensor | None = None
+                       target_ids: torch.Tensor, pregathered: bool
                        ) -> tuple[torch.Tensor, ...]:
     """One selectivity-proportional round: each query scans the tiles of
-    its selected cells, at most ``p_budget`` of them. Same return contract
-    as :func:`_ivpq_round` (``target_ids`` maps target positions to global
-    ids; the overrides likewise); ``retrieved`` counts rows actually
-    scanned, so a query cut short by the budget is never wrongly
-    retired."""
+    its selected cells (``selection``, its :func:`select_tiles`), at most
+    ``p_budget`` of them. Same return contract as :func:`_ivpq_round`
+    (``target_ids`` maps target positions to global ids); ``retrieved``
+    counts rows actually scanned, so a query cut short by the budget is
+    never wrongly retired."""
     bt = jt.block_t
-    tiles, exhausted, predicted, retrieved_sel = probe_tiles(
-        queries, coarse_centroids, statistics, jt, k, alpha, confidence,
-        p_budget, t_real_override, cell_counts_override)
+    start, cnt, exhausted, predicted, retrieved_sel = selection
+    tiles, _ = plan_probe_tiles(p_budget, start, cnt, jt.inf_tile)
 
     if method == EXACT_CALC:
         qf = queries.float()
@@ -528,6 +533,10 @@ class _JoinCall:
     long_codes_threshold: float
     budget_tiles: int | None
     lut_dtype: str
+    #: a round so far has scanned fused-pair ("short") codes
+    short_codes: bool = False
+    #: candidate slots scored so far, summed over queries and rounds
+    scan_slots: int = 0
 
 
 def _merge_round(best, new, resolved: torch.Tensor, k: int):
@@ -660,8 +669,11 @@ class IVPQIndex:
         kernel is chosen it warns and keeps float32 LUTs, and the dense
         round ignores it — all as in the JAX package. ``return_info`` adds
         a dict: per-query ``retrieved`` and ``target_count``, ``rounds``,
-        ``final_alpha`` and ``data_retrieval_s``. Its device → host reads
-        go through :func:`.tracker.host`, which counts them."""
+        ``final_alpha``, ``data_retrieval_s``, ``short_codes`` (some round
+        scanned fused-pair codes) and ``scan_slots`` (candidate slots a
+        query, summed over its rounds: a budget round's P·block_t, padding
+        included, a dense round's T). Its device → host reads go through
+        :func:`.tracker.host`, which counts them."""
         if lut_dtype not in ("bf16", "int8"):
             raise ValueError(f"lut_dtype must be 'bf16' or 'int8', "
                              f"got {lut_dtype!r}")
@@ -713,7 +725,9 @@ class IVPQIndex:
                 for key in ("retrieved", "target_count")}
         info.update(rounds=max(o[2]["rounds"] for o in outs),
                     final_alpha=max(o[2]["final_alpha"] for o in outs),
-                    data_retrieval_s=data_retrieval_s)
+                    data_retrieval_s=data_retrieval_s,
+                    short_codes=call.short_codes,
+                    scan_slots=call.scan_slots / max(queries.shape[0], 1))
         return vals, ids, info
 
     @staticmethod
@@ -760,13 +774,19 @@ class IVPQIndex:
 
     def _join_round1(self, queries: torch.Tensor, call: _JoinCall,
                      alpha: int) -> dict:
-        """The first probe round of the alpha-escalation loop."""
+        """The first probe round of the alpha-escalation loop. A budget
+        round fitted to its selections (:meth:`_run_round`) scans every
+        selected cell, which hold min(k, T) targets or more (the coverage
+        floor of :func:`_select_cells`), so no round can add a candidate
+        and the done check is not read."""
         vals, ids, retrieved, exhausted, predicted = self._run_round(
             queries, call, int(alpha))
         resolved = retrieved >= call.k
+        whole = call.jt is not None and call.budget_tiles is None
         return dict(best=(vals, ids, retrieved, predicted),
                     resolved=resolved,
-                    done=bool(host(torch.all(resolved | exhausted))))
+                    done=whole or bool(host(torch.all(resolved
+                                                      | exhausted))))
 
     def _join_escalate(self, queries: torch.Tensor, state: dict,
                        call: _JoinCall, alpha: int, max_rounds: int):
@@ -788,25 +808,28 @@ class IVPQIndex:
                 "rounds": rounds, "final_alpha": cur_alpha}
         return best[0], best[1], info
 
-    def _budget_for(self, jt: JoinTiles, k: int, alpha: int,
-                    budget_tiles: int | None) -> int:
-        """Tile budget for one round: sized to the expected k·alpha
-        candidate rows, a power of two (the JAX package's rule)."""
+    def _budget_for(self, jt: JoinTiles, budget_tiles: int | None,
+                    counts: list[torch.Tensor]) -> int:
+        """Tile budget for one round: ``budget_tiles`` where given, else
+        :func:`fit_budget` of the selections' tile counts ``counts``."""
         cap = max(int(jt.codes_t.shape[1]) // jt.block_t - 1, 1)
         if budget_tiles is not None:
             return max(1, min(budget_tiles, cap))
-        want = max(8, (2 * k * alpha) // jt.block_t + 4)
-        return min(1 << int(np.ceil(np.log2(want))), cap)
+        return fit_budget(counts, cap)
 
     def _run_round(self, queries: torch.Tensor, call: _JoinCall,
                    alpha: int) -> tuple[torch.Tensor, ...]:
         """One probe round over a query chunk → (vals, global ids,
         retrieved, exhausted, predicted): the JAX package's
         ``_dense_round_program`` or ``_budget_round_program``, the latter
-        in blocks of :data:`_BUDGET_SCAN_BLOCK` queries."""
+        in blocks of :data:`_BUDGET_SCAN_BLOCK` queries. Without
+        ``budget_tiles`` the budget round plans the tiles of the largest
+        selection (:func:`fit_budget`)."""
         ph = call.prepared
         use_double = alpha * call.k > call.long_codes_threshold
+        call.short_codes |= use_double and call.method != EXACT_CALC
         if call.jt is None:
+            call.scan_slots += queries.shape[0] * ph.size
             k_sub = self.codebook.centroids.shape[1]
             codes_t = None if call.method == EXACT_CALC else ph.codes_t(
                 k_sub if use_double else None)
@@ -816,13 +839,18 @@ class IVPQIndex:
                 call.statistics, ph.vectors, call.k, alpha, call.pvf,
                 call.method, call.confidence, use_double,
                 ph.vecs_pregathered)
-        p = self._budget_for(call.jt, call.k, alpha, call.budget_tiles)
+        blocks = torch.split(queries, _BUDGET_SCAN_BLOCK)
+        sels = [select_tiles(qb, self.coarse.centroids, call.statistics,
+                             call.jt, call.k, alpha, call.confidence)
+                for qb in blocks]
+        p = self._budget_for(call.jt, call.budget_tiles,
+                             [s[1] for s in sels])
+        call.scan_slots += queries.shape[0] * p * call.jt.block_t
         outs = [_ivpq_round_budget(
-            qb, self.coarse.centroids, self.codebook.centroids, call.jt,
-            ph.vectors, call.statistics, call.k, alpha, call.pvf,
-            call.method, call.confidence, use_double, p, call.lut_dtype,
+            qb, self.codebook.centroids, call.jt, ph.vectors, sel, call.k,
+            call.pvf, call.method, use_double, p, call.lut_dtype,
             ph.target_ids, ph.vecs_pregathered)
-            for qb in torch.split(queries, _BUDGET_SCAN_BLOCK)]
+            for qb, sel in zip(blocks, sels)]
         return tuple(torch.cat(parts) for parts in zip(*outs))
 
     # ------------------------------------------------------------ mutation

@@ -670,16 +670,6 @@ def _tiles_to(jt, dev: torch.device):
         if isinstance(v, torch.Tensor)})
 
 
-def join_p_budget(mesh: Mesh, bundle: dict, k: int, alpha: int) -> int:
-    """Tile slots a query gets on each shard in a budget round (JAX
-    :652-655): the k·alpha expected rows spread over the shards, as a power
-    of two."""
-    want = max(8, (2 * k * alpha)
-               // (bundle["block_t"] * mesh.shape[ROWS_AXIS]) + 4)
-    return min(1 << int(np.ceil(np.log2(want))),
-               max(bundle["n_tiles"] - 1, 1))
-
-
 def sharded_ivpq_join_round_budget(mesh: Mesh, queries: torch.Tensor,
                                    coarse_cent, codebook_cent, bundle: dict,
                                    statistics, *, k: int, alpha: int,
@@ -691,22 +681,25 @@ def sharded_ivpq_join_round_budget(mesh: Mesh, queries: torch.Tensor,
     each shard probes only the tiles of each query's selected cells within
     its slice (``models.ivpq._ivpq_round_budget``: K6/K7 for ADC, K9/K10
     for the exact method), the cell selection fed the whole set's counts;
-    float LUTs (no ``lut_dtype``), as in the JAX module. ``p_budget``
-    defaults to :func:`join_p_budget`. → (dists, global ids, rows
-    scanned)."""
-    if p_budget is None:
-        p_budget = join_p_budget(mesh, bundle, k, alpha)
+    float LUTs (no ``lut_dtype``), as in the JAX module. Without
+    ``p_budget`` each shard plans the tiles of its largest selection
+    (``models.ivpq.fit_budget``), so no query's cells are cut short; the
+    JAX module's power of two for the expected rows may cut them.
+    → (dists, global ids, rows scanned)."""
     t_vecs = bundle["t_vecs"]
 
     def shard(r, j, dev, q):
+        jt = bundle["jt"][r][dev]
+        sel = ivpq_mod.select_tiles(
+            q, _on(coarse_cent, dev), _on(statistics, dev), jt, k, alpha,
+            confidence, bundle["t_real"].to(dev),
+            bundle["cell_counts"].to(dev))
+        p = p_budget if p_budget is not None else ivpq_mod.fit_budget(
+            [sel[1]], max(bundle["n_tiles"] - 1, 1))
         vals, ids, found, _, _ = ivpq_mod._ivpq_round_budget(
-            q, _on(coarse_cent, dev), _on(codebook_cent, dev),
-            bundle["jt"][r][dev],
-            None if t_vecs is None else t_vecs.local(r, j),
-            _on(statistics, dev), k, alpha, pvf, method, confidence, False,
-            p_budget, "bf16", bundle["t_ids"].local(r, j), True,
-            t_real_override=bundle["t_real"].to(dev),
-            cell_counts_override=bundle["cell_counts"].to(dev))
+            q, _on(codebook_cent, dev), jt,
+            None if t_vecs is None else t_vecs.local(r, j), sel, k, pvf,
+            method, False, p, "bf16", bundle["t_ids"].local(r, j), True)
         return vals, ids, found
 
     return _sharded_search(mesh, queries, shard, k)

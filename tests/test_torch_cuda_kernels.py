@@ -1541,6 +1541,7 @@ def test_sharded_budget_join_kernels_match_plain_at_block_t_128(engine_dirs,
     the card returns the CPU mesh's up to ties."""
     from postgres_word2vec_tpu_torch import Freddy
     from postgres_word2vec_tpu_torch.models import ivpq as ivpq_mod
+    from postgres_word2vec_tpu_torch.models.ivfadc import plan_probe_tiles
     from postgres_word2vec_tpu_torch.ops import lut
     from postgres_word2vec_tpu_torch.parallel import sharding
     from test_torch_parity_util import assert_same_top_k
@@ -1571,9 +1572,10 @@ def test_sharded_budget_join_kernels_match_plain_at_block_t_128(engine_dirs,
     jt = bundle["jt"][1][torch.device("cuda", 0)]
     assert jt.block_t == 128
     stats = ivpq_mod.uniform_statistics(ivpq.coarse.cell_counts)
-    tiles, *_ = ivpq_mod.probe_tiles(
-        q_g, ivpq.coarse.centroids, stats, jt, 5, 20, 0.8, 16,
+    start, cnt, *_ = ivpq_mod.select_tiles(
+        q_g, ivpq.coarse.centroids, stats, jt, 5, 20, 0.8,
         bundle["t_real"], bundle["cell_counts"])
+    tiles, _ = plan_probe_tiles(16, start, cnt, jt.inf_tile)
     if method == 0:
         luts = lut.build_luts(q_g, ivpq.codebook.centroids)
         want = kernels.budget_adc_plain(luts, jt.codes_t, jt.rowterm, tiles,

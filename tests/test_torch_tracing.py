@@ -34,7 +34,8 @@ SPANS = {"fe_queue_time": None, "total_time": None,
          "join_format_time": None, "fe_reply_time": None}
 #: the tracker lists a served /knn_join statement appends one value to
 PER_STATEMENT = ("fe_queue_time", "join_search_time", "join_read_time",
-                 "join_format_time", "fe_reply_time", "join_host_reads")
+                 "join_format_time", "fe_reply_time", "join_host_reads",
+                 "join_short_codes", "join_scan_slots")
 
 
 @pytest.fixture(scope="module")
