@@ -159,7 +159,16 @@ a user calls, and holds every hand-written kernel to its plain version:
     of K1–K8 launched and held to its plain version on its first launch,
     the launches of each section, the table that the port's
     ``gen_readme_table`` renders from the record; nothing under
-    ``reports/`` nor ``BENCH_LOCAL_latest.json`` changes.
+    ``reports/`` nor ``BENCH_LOCAL_latest.json`` changes;
+18. run between 12 and 13, on the phase-4 engine before its insert: the
+    served /knn_join round replayed from its two captured CUDA graphs
+    (selection; scan per plan size P) against the same round run eager,
+    at both join cells' statement shapes (1,024 words against "t100k"
+    with statistics, PQ + PV, α 200 in long codes and α 10,000 at
+    threshold 0 in short codes): rows, answers, counts and launches equal,
+    ``join_graph_rounds`` 1 and ``join_host_reads`` 5 a warm statement;
+    the facade's ms a statement eager and replayed, P, the graphs held,
+    the memory their pool pins and the peak while they replay.
 
 Usage: ``python3 chip_smoke.py [--profile OUT.json] [--bench-out
 BENCH.json]`` from the repository root, on a machine with one CUDA GPU;
@@ -3018,6 +3027,126 @@ def bench_phase(torch, path_launches: dict, card: str,
             "sections": child["sections"], "line": line}
 
 
+# ------------------------------- 18: the join round's captured CUDA graphs
+#: the benchmark's two join cells: α, long-codes threshold, the kernel
+GRAPH_SHAPES = (("long_a200", 200, 1e7, "budget_adc_grouped"),
+                ("short_a10000", 10_000, 0.0, "budget_adc"))
+GRAPH_SETS, GRAPH_WORDS = 8, 1024
+
+
+def graphs_phase(torch, eng, words, card: str) -> dict:
+    """The served /knn_join round replayed from its two CUDA graphs
+    (``models/join_graphs.py``) against the same round run eager, at both
+    join cells' statement shapes: 1,024 words a statement against the
+    prepared 100k set "t100k" with its statistics, k 5, PQ + PV (pvf 20),
+    α 200 in long codes and α 10,000 at threshold 0 in short codes.
+    Checks: the facade's rows, and ``search_join``'s answers, counts and
+    launches, equal to an eager twin's once the graphs replay;
+    ``join_graph_rounds`` 1 and ``join_host_reads`` 5 a warm statement.
+    Reports the facade's ms a statement eager and replayed, the plan
+    sizes P, the graphs held, the memory their pool pins (reserved memory
+    with the graphs and without, each after ``empty_cache``) and the peak
+    allocated while they replay."""
+    import gc
+
+    from postgres_word2vec_tpu_torch.models.ivpq import PQ_PV_CALC, IVPQIndex
+    from postgres_word2vec_tpu_torch.models.join_graphs import RoundGraphs
+    from postgres_word2vec_tpu_torch.ops import kernels
+    from postgres_word2vec_tpu_torch.utils.tracker import GLOBAL_TRACKER
+
+    ivpq, p = eng.ivpq, eng.params
+    ph, stats = eng.prepared_targets["t100k"], eng.statistics["t100k"]
+    saved = {f: getattr(p, f) for f in (
+        "alpha", "pvf", "method", "confidence", "long_codes_threshold",
+        "statistics_table", "pq_lut_dtype", "use_targetlist")}
+    eager = IVPQIndex(ivpq.coarse, ivpq.codebook, ivpq.codes, ivpq.cell_of)
+    eager._round_graphs = off = RoundGraphs(engages=lambda x: False)
+    gen = torch.Generator().manual_seed(SEED + 18)
+    sets = [[words[i] for i in torch.randint(0, len(words), (GRAPH_WORDS,),
+                                             generator=gen).tolist()]
+            for _ in range(GRAPH_SETS)]
+    out = {}
+    for name, alpha, threshold, kernel in GRAPH_SHAPES:
+        p.alpha, p.pvf, p.method, p.confidence = alpha, 20, PQ_PV_CALC, 0.8
+        p.long_codes_threshold, p.statistics_table = threshold, "t100k"
+        p.pq_lut_dtype, p.use_targetlist = "bf16", True
+        graphs = ivpq._round_graphs = RoundGraphs()
+
+        def statements(n_pass):
+            rows, ms = [], []
+            for _ in range(n_pass):
+                rows, ms = [], []
+                for ws in sets:
+                    t0 = time.perf_counter()
+                    rows.append(eng.knn_in_ivpq_batch(ws, JOIN_K, "t100k"))
+                    ms.append((time.perf_counter() - t0) * 1e3)
+            return rows, ms
+
+        ivpq._round_graphs = off
+        want_rows, eager_ms = statements(2)
+        ivpq._round_graphs = graphs
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_alloc = torch.cuda.memory_allocated()
+        got_rows, graph_ms = statements(4)
+        res = GLOBAL_TRACKER.get_results()
+        warm = res["join_graph_rounds"][-GRAPH_SETS:]
+        check(got_rows == want_rows, f"[18] {name}: replayed rows differ "
+              "from the eager round's")
+        check(warm == [1.0] * GRAPH_SETS, f"[18] {name}: a warm statement "
+              f"ran eager: join_graph_rounds {warm}")
+        check(res["join_host_reads"][-GRAPH_SETS:] == [5.0] * GRAPH_SETS,
+              f"[18] {name}: join_host_reads "
+              f"{res['join_host_reads'][-GRAPH_SETS:]}")
+        peak_gib = (torch.cuda.max_memory_allocated() - base_alloc) / 2**30
+        sizes = set()
+        for ws in sets:
+            q = eng._query_matrix(ws)
+            one = []
+            for index in (ivpq, eager):
+                kernels.reset_launch_counts()
+                d, i, info = index.search_join(
+                    q, JOIN_K, prepared=ph, statistics=stats, alpha=alpha,
+                    pvf=20, method=PQ_PV_CALC, confidence=0.8,
+                    long_codes_threshold=threshold, return_info=True)
+                torch.cuda.synchronize()
+                one.append((d, i, info, kernels.launch_counts()))
+            (d, i, info, n), (d0, i0, info0, n0) = one
+            check(torch.equal(d, d0) and torch.equal(i, i0)
+                  and torch.equal(info["retrieved"], info0["retrieved"])
+                  and torch.equal(info["target_count"],
+                                  info0["target_count"])
+                  and info["scan_slots"] == info0["scan_slots"],
+                  f"[18] {name}: the replayed round differs from eager")
+            check(info["graph_rounds"] == 1.0 and n == n0 and n[kernel] == 2,
+                  f"[18] {name}: launches replayed {n}, eager {n0}")
+            sizes.add(int(info["scan_slots"]) // ph.block_t)
+        held, captures = len(graphs), graphs.captures
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        with_graphs = torch.cuda.memory_reserved()
+        graphs.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        pinned_mib = (with_graphs - torch.cuda.memory_reserved()) / 2**20
+        out[name] = {
+            "p": sorted(sizes), "graphs_held": held, "captures": captures,
+            "pool_pinned_mib": round(pinned_mib, 1),
+            "peak_above_base_gib": round(peak_gib, 3),
+            "eager_ms_p50": round(p50(eager_ms), 3),
+            "replayed_ms_p50": round(p50(graph_ms), 3)}
+        log(f"[18] {name}: {GRAPH_SETS} statements of {GRAPH_WORDS} words, "
+            f"P {sorted(sizes)}, {held} graphs held ({captures} captures), "
+            f"pool pins {pinned_mib:.1f} MiB, peak {peak_gib:.3f} GiB above "
+            f"the engine; facade ms a statement p50 eager "
+            f"{p50(eager_ms):.2f}, replayed {p50(graph_ms):.2f} on {card}")
+    for f, v in saved.items():
+        setattr(p, f, v)
+    ivpq._round_graphs = RoundGraphs()
+    return out
+
+
 def engine_phases(torch, args) -> dict:
     """Phases 1-13 on the phase-4 engine → the numbers the summary lines
     print, the launches of each path, and the head of the phase-4 store
@@ -3181,7 +3310,7 @@ def engine_phases(torch, args) -> dict:
             if stats is None else stats
         start, cnt, *_ = ivpq_mod.select_tiles(
             qs, ivpq.coarse.centroids, st, jt, JOIN_K, alpha, 0.8)
-        p = ivpq._budget_for(jt, None, [cnt])
+        p = ivpq._budget_for(jt, None, lambda: ivpq_mod.budget_need([cnt]))
         tiles, _ = ivfadc_mod.plan_probe_tiles(p, start, cnt, jt.inf_tile)
         return tiles
 
@@ -4046,6 +4175,11 @@ def engine_phases(torch, args) -> dict:
                              errs, run_path, path_launches, card)
     log(f"[12] sharding phase took {time.perf_counter() - t0:.1f} s")
 
+    # ------------- 18: the join round's CUDA graphs (before the insert)
+    t0 = time.perf_counter()
+    join_graphs = graphs_phase(torch, eng, words, card)
+    log(f"[18] join graphs phase took {time.perf_counter() - t0:.1f} s")
+
     # ------------------------------------------------------ 13: insert
     inserted = insert_phase(torch, ExactIndex, eng, exact8, run_path,
                             path_launches, card)
@@ -4059,7 +4193,7 @@ def engine_phases(torch, args) -> dict:
               "insert": inserted, "engine": engine,
               "serving": serving, "builders": built_rows,
               "aniso": aniso, "harness": evaluation,
-              "sharding": sharded,
+              "sharding": sharded, "join_graphs": join_graphs,
               "path_launches": path_launches,
               "sweep_ms": sweep, "budget_adc_join_ms": k6_ms,
               "budget_adc_join_bounds": k6_bounds,

@@ -732,8 +732,10 @@ class Freddy:
         (the target tiling build; 0 on a prepared handle) and computation,
         plus per-query ``retrieved`` and ``target_count`` and, one value a
         statement, ``join_host_reads``, ``join_short_codes`` (1 where a
-        round scanned fused-pair codes) and ``join_scan_slots`` (candidate
-        slots a query). Under a mesh the join runs sharded over the targets
+        round scanned fused-pair codes), ``join_graph_rounds`` (1 where the
+        first round replayed its captured graphs, 0 where it ran eager) and
+        ``join_scan_slots`` (candidate slots a query). Under a mesh the
+        join runs sharded over the targets
         (:func:`parallel.sharding.sharded_ivpq_join`, the dense round; a
         prepared handle gives its targets) and reports no per-query counts,
         as in the JAX engine."""
@@ -794,6 +796,7 @@ class Freddy:
         if info is not None:
             tr.track("join_host_reads", host_reads() - reads)
             tr.track("join_short_codes", float(info["short_codes"]))
+            tr.track("join_graph_rounds", float(info["graph_rounds"]))
             tr.track("join_scan_slots", info["scan_slots"])
         return rows
 

@@ -49,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from postgres_word2vec_tpu_torch.models.ivfadc import plan_probe_tiles
+from postgres_word2vec_tpu_torch.models.join_graphs import RoundGraphs
 from postgres_word2vec_tpu_torch.models.pq import (PQCodebook, _sample_rows,
                                                    online_codebook_update)
 from postgres_word2vec_tpu_torch.ops import adc, kernels, kmeans, lut
@@ -68,7 +69,12 @@ _BUDGET_SCAN_BLOCK = 512
 
 
 def _f32(x, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+    """``x`` as a float32 tensor on ``like``'s device; a Python number
+    is filled there rather than copied from the host, which a captured
+    graph cannot do."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=like.device, dtype=torch.float32)
+    return torch.full((), float(x), dtype=torch.float32, device=like.device)
 
 
 def confidence_hyp(expect, size, p, stat_size) -> torch.Tensor:
@@ -414,15 +420,25 @@ def select_tiles(queries: torch.Tensor, coarse_centroids: torch.Tensor,
             exhausted, predicted, retrieved_sel)
 
 
+def budget_need(counts: list[torch.Tensor]) -> torch.Tensor:
+    """The most tiles any query's selected cells take (the ``cnt`` of
+    :func:`select_tiles`, over every block in ``counts``), on the device."""
+    return torch.stack([c.sum(1).max() for c in counts]).max()
+
+
+def fit_need(need: torch.Tensor, cap: int) -> int:
+    """Tile slots a budget round plans for each query from
+    :func:`budget_need` (one host read): in sixteens, at most ``cap``.
+    Unlike the JAX package's power of two for the expected k·alpha rows, no
+    query's cells are cut short (ivpq_search_in.c:355-401 fetches every
+    selected cell)."""
+    n = int(host(need))
+    return max(1, min(-(-n // 16) * 16, cap))
+
+
 def fit_budget(counts: list[torch.Tensor], cap: int) -> int:
-    """Tile slots a budget round plans for each query: the most tiles any
-    query's selected cells take (the ``cnt`` of :func:`select_tiles`, over
-    every block in ``counts``; one host read), in sixteens, at most
-    ``cap``. Unlike the JAX package's power of two for the expected k·alpha
-    rows, no query's cells are cut short (ivpq_search_in.c:355-401 fetches
-    every selected cell)."""
-    need = int(host(torch.stack([c.sum(1).max() for c in counts]).max()))
-    return max(1, min(-(-need // 16) * 16, cap))
+    """:func:`fit_need` of the selections' tile counts ``counts``."""
+    return fit_need(budget_need(counts), cap)
 
 
 def _ivpq_round_budget(queries: torch.Tensor, codebook_cent: torch.Tensor,
@@ -537,6 +553,8 @@ class _JoinCall:
     short_codes: bool = False
     #: candidate slots scored so far, summed over queries and rounds
     scan_slots: int = 0
+    #: query chunks whose first round replayed its graphs
+    graph_rounds: int = 0
 
 
 def _merge_round(best, new, resolved: torch.Tensor, k: int):
@@ -570,6 +588,10 @@ class IVPQIndex:
     _join_cache: dict = dataclasses.field(default_factory=dict, repr=False,
                                           compare=False)
     _JOIN_CACHE_CAP = 4
+    #: Captured first budget rounds (:meth:`_graph_round`); a new index
+    #: starts with none.
+    _round_graphs: RoundGraphs = dataclasses.field(
+        default_factory=RoundGraphs, repr=False, compare=False)
 
     @property
     def size(self) -> int:
@@ -670,9 +692,11 @@ class IVPQIndex:
         round ignores it — all as in the JAX package. ``return_info`` adds
         a dict: per-query ``retrieved`` and ``target_count``, ``rounds``,
         ``final_alpha``, ``data_retrieval_s``, ``short_codes`` (some round
-        scanned fused-pair codes) and ``scan_slots`` (candidate slots a
+        scanned fused-pair codes), ``scan_slots`` (candidate slots a
         query, summed over its rounds: a budget round's P·block_t, padding
-        included, a dense round's T). Its device → host reads go through
+        included, a dense round's T) and ``graph_rounds`` (the share of
+        query chunks whose first round replayed its captured graphs,
+        :meth:`_graph_round`). Its device → host reads go through
         :func:`.tracker.host`, which counts them."""
         if lut_dtype not in ("bf16", "int8"):
             raise ValueError(f"lut_dtype must be 'bf16' or 'int8', "
@@ -714,9 +738,10 @@ class IVPQIndex:
                          method, float(confidence),
                          float(long_codes_threshold), budget_tiles,
                          lut_dtype)
+        chunks = torch.split(queries, query_chunk)
         outs = [self._join_escalate(qc, self._join_round1(qc, call, alpha),
                                     call, alpha, max_rounds)
-                for qc in torch.split(queries, query_chunk)]
+                for qc in chunks]
         vals = torch.cat([o[0] for o in outs])
         ids = torch.cat([o[1] for o in outs])
         if not return_info:
@@ -727,7 +752,8 @@ class IVPQIndex:
                     final_alpha=max(o[2]["final_alpha"] for o in outs),
                     data_retrieval_s=data_retrieval_s,
                     short_codes=call.short_codes,
-                    scan_slots=call.scan_slots / max(queries.shape[0], 1))
+                    scan_slots=call.scan_slots / max(queries.shape[0], 1),
+                    graph_rounds=call.graph_rounds / max(len(chunks), 1))
         return vals, ids, info
 
     @staticmethod
@@ -780,7 +806,7 @@ class IVPQIndex:
         floor of :func:`_select_cells`), so no round can add a candidate
         and the done check is not read."""
         vals, ids, retrieved, exhausted, predicted = self._run_round(
-            queries, call, int(alpha))
+            queries, call, int(alpha), first=True)
         resolved = retrieved >= call.k
         whole = call.jt is not None and call.budget_tiles is None
         return dict(best=(vals, ids, retrieved, predicted),
@@ -809,22 +835,26 @@ class IVPQIndex:
         return best[0], best[1], info
 
     def _budget_for(self, jt: JoinTiles, budget_tiles: int | None,
-                    counts: list[torch.Tensor]) -> int:
+                    need) -> int:
         """Tile budget for one round: ``budget_tiles`` where given, else
-        :func:`fit_budget` of the selections' tile counts ``counts``."""
+        :func:`fit_need` of ``need()``, the selections' :func:`budget_need`
+        (made only where it is read)."""
         cap = max(int(jt.codes_t.shape[1]) // jt.block_t - 1, 1)
         if budget_tiles is not None:
             return max(1, min(budget_tiles, cap))
-        return fit_budget(counts, cap)
+        return fit_need(need(), cap)
 
     def _run_round(self, queries: torch.Tensor, call: _JoinCall,
-                   alpha: int) -> tuple[torch.Tensor, ...]:
+                   alpha: int, first: bool = False
+                   ) -> tuple[torch.Tensor, ...]:
         """One probe round over a query chunk → (vals, global ids,
         retrieved, exhausted, predicted): the JAX package's
         ``_dense_round_program`` or ``_budget_round_program``, the latter
         in blocks of :data:`_BUDGET_SCAN_BLOCK` queries. Without
         ``budget_tiles`` the budget round plans the tiles of the largest
-        selection (:func:`fit_budget`)."""
+        selection (:func:`fit_budget`). A ``first`` budget round on the
+        card replays its captured graphs where it can
+        (:meth:`_graph_round`)."""
         ph = call.prepared
         use_double = alpha * call.k > call.long_codes_threshold
         call.short_codes |= use_double and call.method != EXACT_CALC
@@ -839,19 +869,83 @@ class IVPQIndex:
                 call.statistics, ph.vectors, call.k, alpha, call.pvf,
                 call.method, call.confidence, use_double,
                 ph.vecs_pregathered)
-        blocks = torch.split(queries, _BUDGET_SCAN_BLOCK)
-        sels = [select_tiles(qb, self.coarse.centroids, call.statistics,
-                             call.jt, call.k, alpha, call.confidence)
-                for qb in blocks]
+        if first and self._round_graphs.engages(queries):
+            out = self._graph_round(queries, call, alpha, use_double)
+            if out is not None:
+                return out
+        sels = self._select(queries, call, alpha)
         p = self._budget_for(call.jt, call.budget_tiles,
-                             [s[1] for s in sels])
+                             lambda: budget_need([s[1] for s in sels]))
         call.scan_slots += queries.shape[0] * p * call.jt.block_t
+        return self._scan(queries, call, sels, p, use_double)
+
+    def _select(self, queries: torch.Tensor, call: _JoinCall, alpha: int
+                ) -> list[tuple[torch.Tensor, ...]]:
+        """:func:`select_tiles` of each block of a budget round."""
+        return [select_tiles(qb, self.coarse.centroids, call.statistics,
+                             call.jt, call.k, alpha, call.confidence)
+                for qb in torch.split(queries, _BUDGET_SCAN_BLOCK)]
+
+    def _scan(self, queries: torch.Tensor, call: _JoinCall, sels: list,
+              p: int, use_double: bool) -> tuple[torch.Tensor, ...]:
+        """A budget round's scan at ``p`` tiles a query over the blocks'
+        selections ``sels``, the blocks' outputs concatenated."""
+        ph = call.prepared
         outs = [_ivpq_round_budget(
             qb, self.codebook.centroids, call.jt, ph.vectors, sel, call.k,
             call.pvf, call.method, use_double, p, call.lut_dtype,
             ph.target_ids, ph.vecs_pregathered)
-            for qb, sel in zip(blocks, sels)]
+            for qb, sel in zip(torch.split(queries, _BUDGET_SCAN_BLOCK),
+                               sels)]
         return tuple(torch.cat(parts) for parts in zip(*outs))
+
+    def _graph_round(self, queries: torch.Tensor, call: _JoinCall,
+                     alpha: int, use_double: bool
+                     ) -> tuple[torch.Tensor, ...] | None:
+        """A first budget round from :attr:`_round_graphs`: the selection
+        graph over a static copy of the queries, the one read that fits P
+        (:meth:`_budget_for`), then the scan graph, keyed also on P and
+        reading the selection graph's outputs. The same work as
+        :meth:`_select` and :meth:`_scan`, bit for bit. → the round's
+        outputs, copied out of the graph; None on the selection key's
+        first sighting, where the caller runs the round eager (the scan
+        runs eager on its own key's first sighting). Entries end with the
+        prepared set or the statistics table, or an in-place change of
+        the latter; an unprepared call's handle ends with the call, so
+        such calls stay eager. The index's own tables never change
+        (:meth:`add` returns a new index), so the keys leave them out."""
+        graphs, ph, jt, st = (self._round_graphs, call.prepared, call.jt,
+                              call.statistics)
+        sizes = tuple(qb.shape[0] for qb in
+                      torch.split(queries, _BUDGET_SCAN_BLOCK))
+        alive = (ph, st)
+        s_key = ("select", id(ph), id(jt), id(st), st._version, call.k,
+                 alpha, call.confidence, sizes, queries.dtype,
+                 queries.shape[1])
+
+        def select(q):
+            sels = self._select(q, call, alpha)
+            return (budget_need([s[1] for s in sels]),
+                    *(t for sel in sels for t in sel))
+
+        with graphs.lock:
+            s = graphs.run(s_key, select, (queries,), alive=alive)
+            if s is None:
+                return None
+            flat = s.outputs[1:]
+            per = len(flat) // len(sizes)
+            sels = [flat[i:i + per] for i in range(0, len(flat), per)]
+            p = self._budget_for(jt, call.budget_tiles, lambda: s.outputs[0])
+            call.scan_slots += queries.shape[0] * p * jt.block_t
+            r_key = s_key + ("scan", p, use_double, call.method, call.pvf,
+                             call.lut_dtype)
+            r = graphs.run(r_key, lambda: self._scan(
+                s.inputs[0], call, sels, p, use_double),
+                alive=alive, parent=s_key)
+            if r is None:
+                return self._scan(s.inputs[0], call, sels, p, use_double)
+            call.graph_rounds += 1
+            return tuple(t.clone() for t in r.outputs)
 
     # ------------------------------------------------------------ mutation
     def add(self, new_vectors: torch.Tensor) -> "IVPQIndex":

@@ -4,6 +4,7 @@ list; the span ring, empty without a profiler and filled under one, its
 spans on the profiler's clock; the ring's bound; the statement's
 device → host reads; results read while other threads record."""
 
+import functools
 import json
 import sys
 import threading
@@ -35,7 +36,7 @@ SPANS = {"fe_queue_time": None, "total_time": None,
 #: the tracker lists a served /knn_join statement appends one value to
 PER_STATEMENT = ("fe_queue_time", "join_search_time", "join_read_time",
                  "join_format_time", "fe_reply_time", "join_host_reads",
-                 "join_short_codes", "join_scan_slots")
+                 "join_short_codes", "join_scan_slots", "join_graph_rounds")
 
 
 @pytest.fixture(scope="module")
@@ -193,6 +194,38 @@ def test_a_join_statement_reads_the_device_five_times(served, targets):
     eng, _ = served
     eng.knn_in_ivpq_batch(WORDS, 3, targets)
     assert GLOBAL_TRACKER.get_results()["join_host_reads"][-1] == 5.0
+
+
+def test_join_graph_rounds_reads_1_on_replay_and_0_eager(served,
+                                                        monkeypatch):
+    """One value a statement: 0 on the CPU's dense round; on the budget
+    round with capture and replay injected (the card's path) 0 while the
+    round runs eager (the first statement; the second, whose scan is seen
+    first), then 1 once both of its graphs replay; the reads stay five."""
+    from test_torch_join_graphs import capture, replay
+
+    from postgres_word2vec_tpu_torch.models.join_graphs import RoundGraphs
+
+    eng, srv = served
+
+    def graph_rounds():
+        post(srv, "/knn_join", JOIN)
+        res = GLOBAL_TRACKER.get_results()
+        assert res["join_host_reads"][-1] == 5.0
+        return res["join_graph_rounds"][-1]
+
+    assert graph_rounds() == 0.0
+    ivpq_index = eng.ivpq
+    monkeypatch.setattr(ivpq_index, "search_join", functools.partial(
+        type(ivpq_index).search_join, ivpq_index, impl="budget"))
+    monkeypatch.setattr(ivpq_index, "_round_graphs", RoundGraphs(
+        capture=capture, replay=replay, engages=lambda x: True))
+    eng.create_statistics("graphs", [f"w{i}" for i in range(0, N, 4)])
+    try:
+        assert [graph_rounds() for _ in range(4)] == [0.0, 0.0, 1.0, 1.0]
+    finally:
+        eng.params.statistics_table = None
+        eng.statistics.pop("graphs")
 
 
 def test_search_join_counts_its_reads(served):
